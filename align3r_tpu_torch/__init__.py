@@ -6,16 +6,21 @@ against it by the `tests/test_torch_*.py` parity tests.
 
 - ``models``     — the Align3R two-view network as ``nn.Module``s whose
   parameter names are the reference checkpoint keys, plus the functional
-  inference path that runs on prepared (stream-stacked, bf16) weights.
+  inference path that runs on prepared (stream-stacked, bf16) weights and
+  the differentiable training forward (``Align3R.forward``).
 - ``ops``        — hand-written Hopper kernels (``csrc/``), each beside its
-  plain PyTorch version: the fused attention and MLP sites and the fused
-  edge-residual loss (forward and backward).
+  plain PyTorch version: the fused attention and MLP sites, the fused
+  edge-residual loss (forward and backward) and attention for short
+  sequences; the attention dispatch.
 - ``geometry``   — camera geometry and pose parameterisations.
 - ``inference``  — the pairwise engine (unique-image encode, batched decode).
 - ``alignment``  — MST initialisation and the Adam global-alignment solve.
 - ``pipeline``   — ``reconstruct_scene``, the per-video entry point.
+- ``training``   — losses, the train step and optimizer, the data loader
+  and ``train``, the fine-tuning entry point.
+- ``tools``      — measurement scripts run on the card.
 
-This package imports ``torch`` and never ``jax``.
+This package imports ``torch`` and never ``jax`` or ``align3r_tpu``.
 """
 
 __version__ = "0.1.0"

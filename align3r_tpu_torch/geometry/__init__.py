@@ -6,6 +6,7 @@ from .core import (
     closed_form_pose_inverse,
     depthmap_to_pts3d,
     pixel_to_pointcloud,
+    normalize_pointcloud,
 )
 from .poses import (
     signed_log1p,

@@ -103,3 +103,35 @@ def pixel_to_pointcloud(depth_map, focal_length_px):
     mn = pc.amin(dim=(0, 1))
     mx = pc.amax(dim=(0, 1))
     return (pc - mn) / (mx - mn)
+
+
+def normalize_pointcloud(pts1, pts2=None, norm_mode: str = "avg_dis",
+                         valid1=None, valid2=None, ret_factor: bool = False):
+    """Joint scale-normalisation of one or two pointmaps (mode 'avg_dis', the
+    training criterion's; geometry/core.py:132-162). pts* (B, H, W, 3);
+    valid* (B, H, W) bool: invalid points contribute zero distance and are
+    counted out of the divisor."""
+    if norm_mode != "avg_dis":
+        raise ValueError(f"norm_mode {norm_mode!r}: only 'avg_dis' is supported")
+
+    def flat(p, v):
+        B = p.shape[0]
+        p = p.reshape(B, -1, 3)
+        if v is None:
+            return p, torch.full((B,), p.shape[1], dtype=p.dtype, device=p.device)
+        v = v.reshape(B, -1, 1).to(p.dtype)
+        return p * v, v[..., 0].sum(dim=1)
+
+    p1, n1 = flat(pts1, valid1)
+    if pts2 is not None:
+        p2, n2 = flat(pts2, valid2)
+        all_pts, nnz = torch.cat([p1, p2], dim=1), n1 + n2
+    else:
+        all_pts, nnz = p1, n1
+    norm_factor = safe_norm(all_pts, dim=-1).sum(dim=1) / (nnz + 1e-8)
+    norm_factor = torch.clamp(norm_factor, min=1e-8)[:, None, None, None]
+    res1 = pts1 / norm_factor
+    if pts2 is None:
+        return (res1, norm_factor) if ret_factor else res1
+    res2 = pts2 / norm_factor
+    return (res1, res2, norm_factor) if ret_factor else (res1, res2)

@@ -10,10 +10,19 @@ JAX ``stack_decoder_params`` layout), biases and LayerNorm parameters fp32.
 
 Functions ``encode_images``, ``embed_point_cloud``, ``decode_pair`` and
 ``apply_align3r`` mirror the JAX ones (the decoder's stacked path).
+
+Training runs ``Align3R.forward`` instead (JAX ``apply_align3r`` with its
+``attn_impl``, ``remat`` and ``head_dtype``): the same network on the
+module's own parameters, differentiable, with per-block checkpointing. An
+encoder whose parameters are all frozen runs under ``torch.no_grad()``, the
+counterpart of the pruned encoder backward of the JAX freeze list
+(step.py:120-133).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
@@ -23,7 +32,8 @@ from torch import nn
 from align3r_tpu_torch.models.config import Align3RConfig
 from align3r_tpu_torch.models import nn as L
 from align3r_tpu_torch.models import blocks as B
-from align3r_tpu_torch.models.dpt_head import DPTHead, apply_dpt_head, prepare_dpt_head
+from align3r_tpu_torch.models.dpt_head import (DPTHead, apply_dpt_head,
+                                               dpt_head_params, prepare_dpt_head)
 from align3r_tpu_torch.models.rope import make_grid_positions
 
 
@@ -56,6 +66,88 @@ class Align3R(nn.Module):
         nch = 3 + (1 if cfg.conf_mode is not None else 0)
         self.downstream_head1 = DPTHead(cfg.dpt_dim_tokens(), nch)
         self.downstream_head2 = DPTHead(cfg.dpt_dim_tokens(), nch)
+
+    def forward(self, view1, view2, dtype=torch.bfloat16, attn_impl: str = "auto",
+                remat: str = "full", head_dtype=torch.float32):
+        """Differentiable two-view forward (JAX apply_align3r,
+        align3r.py:335-371). view*: {'img' (B, H, W, 3), 'pred_depth'
+        (B, H, W, 3)} on the model's device. attn_impl: 'auto' | 'xla' |
+        'small' | 'fused' (ops/attention.py, blocks.py); remat: 'none' |
+        'full' | 'dots' (see _ckpt). Returns (res1{pts3d, conf},
+        res2{pts3d_in_other_view, conf}) in fp32."""
+        cfg = self.cfg
+        img1, img2 = view1["img"], view2["img"]
+        Bn, H, W, _ = img1.shape
+        ps = cfg.patch_size
+        pos = make_grid_positions(H // ps, W // ps, batch=2 * Bn, device=img1.device)
+        encoder = [self.patch_embed, *self.enc_blocks, self.enc_norm]
+        frozen = not any(t.requires_grad for m in encoder for t in m.parameters())
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            x = B.apply_patch_embed(self.patch_embed.proj.weight,
+                                    self.patch_embed.proj.bias,
+                                    torch.cat([img1, img2]).to(dtype), ps)
+            block = _ckpt(functools.partial(
+                B.apply_block, num_heads=cfg.enc_num_heads,
+                rope_base=cfg.effective_rope_base, attn_impl=attn_impl),
+                "none" if frozen else remat)
+            for blk in self.enc_blocks:
+                x = block(blk, x, pos)
+            feats = L.layernorm(x, self.enc_norm.weight, self.enc_norm.bias).float()
+        pe = self.patch_embed_point_cloud.proj
+        pc = B.apply_patch_embed(pe.weight, pe.bias, torch.cat(
+            [view1["pred_depth"], view2["pred_depth"]]).to(dtype), ps)
+        hooks1, hooks2 = self._decode(feats[:Bn], feats[Bn:], pc, pos, dtype,
+                                      attn_impl, remat)
+        grid = (H // ps, W // ps)
+        res1, res2 = (apply_dpt_head(dpt_head_params(h, head_dtype), hk, grid,
+                                     (H, W), cfg.depth_mode, cfg.conf_mode,
+                                     head_dtype)
+                      for h, hk in ((self.downstream_head1, hooks1),
+                                    (self.downstream_head2, hooks2)))
+        res2["pts3d_in_other_view"] = res2.pop("pts3d")
+        return res1, res2
+
+    def _decode(self, feat1, feat2, pc, pos, dtype, attn_impl, remat):
+        """The stacked dual-stream decoder with prior injection (JAX
+        decode_pair, align3r.py:165-282) -> per-view hook lists in fp32."""
+        cfg = self.cfg
+        hooks = cfg.dpt_hooks()
+        Bn = feat1.shape[0]
+        rb = cfg.effective_rope_base
+
+        def zero_conv(i, t):
+            conv = self.zero_convs[i][0]
+            return L.dense(t, conv.weight[:, :, 0].t(), conv.bias)
+
+        de = self.decoder_embed
+        f1 = L.dense(feat1.to(dtype), de.weight.t(), de.bias)
+        f2 = L.dense(feat2.to(dtype), de.weight.t(), de.bias)
+        f1 = f1 + zero_conv(0, pc[:Bn])
+        f2 = f2 + zero_conv(0, pc[Bn:])
+        f = torch.stack([f1, f2])                              # (2, B, N, D)
+        pos_s = torch.stack([pos[:Bn], pos[Bn:]])              # (2, B, N, 2)
+        dec = _ckpt(functools.partial(B.apply_decoder_block_stacked,
+                                      num_heads=cfg.dec_num_heads, rope_base=rb,
+                                      attn_impl=attn_impl), remat)
+        pc_block = _ckpt(functools.partial(B.apply_block, num_heads=cfg.dec_num_heads,
+                                           rope_base=rb, attn_impl=attn_impl), remat)
+        captured = {}
+        for layer in range(cfg.dec_depth):
+            f = dec((self.dec_blocks[layer], self.dec_blocks2[layer]), f, pos_s)
+            if layer < cfg.n_pc_blocks:
+                pc = pc_block(self.dec_blocks_pc[layer], pc, pos)
+                f = f + zero_conv(layer + 1, pc).reshape(f.shape)
+            if layer + 1 in hooks[1:]:
+                captured[layer + 1] = f
+
+        def hook_list(enc_feat, s):
+            out = [enc_feat.float()]
+            out += [captured[h][s].float() for h in hooks[1:-1]]
+            out.append(L.layernorm(captured[hooks[-1]][s], self.dec_norm.weight,
+                                   self.dec_norm.bias).float())
+            return out
+
+        return hook_list(feat1, 0), hook_list(feat2, 1)
 
     @torch.no_grad()
     def prepare(self, dtype=torch.bfloat16, head_dtype=torch.bfloat16):
@@ -108,6 +200,37 @@ class PreparedAlign3R:
         return self.patch_embed[0].device
 
 
+def _dots_policy():
+    """Selective checkpointing that saves the outputs of weight matmuls
+    (aten.mm / addmm: products without batch dimensions) and recomputes the
+    rest, batched attention and grouped-stream products included: the
+    counterpart of jax.checkpoint_policies.dots_with_no_batch_dims_saveable."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    saved = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _ckpt(fn, remat):
+    """Per-block rematerialisation (JAX _ckpt, align3r.py:84-96): 'none'
+    saves every activation; 'full' recomputes the whole block in the backward
+    (torch.utils.checkpoint, non-reentrant); 'dots' saves the weight-matmul
+    outputs only (_dots_policy)."""
+    from torch.utils.checkpoint import checkpoint
+    if remat in (False, None, "none"):
+        return fn
+    if remat in (True, "full"):
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_policy)
+    raise ValueError(f"unknown remat mode {remat!r}")
+
+
 @torch.no_grad()
 def init_align3r_(model: Align3R, seed: int = 0) -> Align3R:
     """Seeded random init with the JAX init_align3r distributions: Linear
@@ -156,7 +279,7 @@ def encode_images(pm: PreparedAlign3R, imgs):
     pos = _grid_pos(pm, H, W, imgs.device)
     x = x[None]
     for p in pm.enc_blocks:
-        x = B.apply_block(p, x, pos, cfg.enc_num_heads, cfg.effective_rope_base)
+        x = B.apply_block_prepared(p, x, pos, cfg.enc_num_heads, cfg.effective_rope_base)
     return L.layernorm(x[0], *pm.enc_norm).float()
 
 
@@ -185,11 +308,11 @@ def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw):
     pcs = pc[None]                                             # (1, 2B, N, D)
     captured = {}
     for layer in range(cfg.dec_depth):
-        f = B.apply_decoder_block_stacked(pm.dec_layers[layer], f, pos,
+        f = B.apply_decoder_layer_prepared(pm.dec_layers[layer], f, pos,
                                           cfg.dec_num_heads,
                                           cfg.effective_rope_base)
         if layer < cfg.n_pc_blocks:
-            pcs = B.apply_block(pm.pc_blocks[layer], pcs, pos,
+            pcs = B.apply_block_prepared(pm.pc_blocks[layer], pcs, pos,
                                 cfg.dec_num_heads, cfg.effective_rope_base)
             inj = L.dense(pcs[0], *pm.zero_convs[layer + 1])
             f = f + inj.reshape(f.shape)

@@ -1,5 +1,8 @@
-"""JAX parameter pytree -> the port's state dict (subset of
-align3r_tpu/models/convert.py).
+"""Checkpoint conversion (subset of align3r_tpu/models/convert.py).
+
+``load_torch_checkpoint`` reads a reference-format ``.pth`` (the port's
+module names are the reference keys, so no layout changes), applying the
+reference's ``dec_blocks2`` duplication rule.
 
 ``state_dict_from_jax`` mirrors ``export_state_dict`` (convert.py:183) on a
 pytree of numpy arrays, without importing jax, and returns torch tensors
@@ -20,7 +23,26 @@ from typing import Dict
 import numpy as np
 import torch
 
-from align3r_tpu_torch.models.config import Align3RConfig
+from align3r_tpu_torch.models.config import Align3RConfig, parse_model_string
+
+
+def load_torch_checkpoint(path: str, cfg: Align3RConfig | None = None):
+    """A reference .pth -> (state_dict, cfg), as the JAX load_torch_checkpoint
+    (convert.py:165-178) reads it: cfg from the checkpoint's ``args.model``
+    string unless given, the ``model`` entry (or the whole file) as the state
+    dict, and dec_blocks2 copied from dec_blocks when it is absent (reference
+    model.py:114-121). Load the result with ``load_state_dict(strict=True)``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if cfg is None:
+        args = ckpt.get("args")
+        cfg = (parse_model_string(args.model) if hasattr(args, "model")
+               else Align3RConfig())
+    sd = dict(ckpt.get("model", ckpt))
+    if not any(k.startswith("dec_blocks2") for k in sd):
+        for k in list(sd):
+            if k.startswith("dec_blocks."):
+                sd[k.replace("dec_blocks.", "dec_blocks2.", 1)] = sd[k]
+    return sd, cfg
 
 
 def state_dict_from_jax(params, cfg: Align3RConfig) -> Dict[str, torch.Tensor]:

@@ -4,9 +4,12 @@ path only).
 ``DPTOutputAdapter`` carries the reference parameter names
 (``act_postprocess``, ``scratch.layer{k}_rn`` with its ``scratch.layer_rn``
 alias, ``scratch.refinenet{k}.resConfUnit{1,2}``, ``head.{0,2,4}``).
-``apply_dpt_head`` runs on a prepared dict of those weights: the conv pyramid
-in ``dtype`` (bf16 by default in the engine), the final regression conv and
-the postprocess pinned to fp32 (engine.py:288-293, dpt_head.py:147).
+``apply_dpt_head`` runs on a dict of those weights: detached ones from
+``prepare_dpt_head`` for inference, or the module's own from
+``dpt_head_params`` for training (differentiable). The conv pyramid runs in
+``dtype`` (bf16 by default in the engine, fp32 in training), the final
+regression conv and the postprocess pinned to fp32 (engine.py:288-293,
+dpt_head.py:147).
 """
 from __future__ import annotations
 
@@ -82,14 +85,14 @@ class DPTHead(nn.Module):
         self.dpt = DPTOutputAdapter(dim_tokens, num_channels)
 
 
-def prepare_dpt_head(head: DPTHead, dtype):
+def dpt_head_params(head: DPTHead, dtype):
     """Weights of one head in the JAX package's naming, (weight, bias) per
-    conv, in `dtype`; head_conv3 stays fp32 (the pinned final conv)."""
+    conv, cast to `dtype` from the module's own parameters (so gradients
+    reach them); head_conv3 stays fp32 (the pinned final conv)."""
     d = head.dpt
 
     def wb(m, dt=dtype):
-        b = None if m.bias is None else m.bias.detach().to(dt)
-        return m.weight.detach().to(dt), b
+        return m.weight.to(dt), None if m.bias is None else m.bias.to(dt)
 
     ap, sc = d.act_postprocess, d.scratch
     p = {"act1_conv": wb(ap[0][0]), "act1_up": wb(ap[0][1]),
@@ -106,6 +109,17 @@ def prepare_dpt_head(head: DPTHead, dtype):
             "res2": (wb(rn.resConfUnit2.conv1), wb(rn.resConfUnit2.conv2)),
             "out_conv": wb(rn.out_conv)}
     return p
+
+
+def prepare_dpt_head(head: DPTHead, dtype):
+    """dpt_head_params, detached: the inference weights."""
+    def detach(t):
+        if isinstance(t, dict):
+            return {k: detach(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(detach(v) for v in t)
+        return None if t is None else t.detach()
+    return detach(dpt_head_params(head, dtype))
 
 
 def _residual_conv_unit(p, x):

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``align3r_tpu_torch/csrc``).
 
-All ``*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+All ``*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
+process per source, all started together) and linked into one shared
 library with a plain C interface, at first use, under ``build/`` at the repo
 root (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edit rebuilds and an unchanged tree reuses the library.
@@ -26,13 +27,14 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "align3r_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "a3r_layernorm": [_P, _P, _P, _P, _LL, _LL, _I, _F, _P],
     "a3r_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "a3r_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "a3r_small_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "a3r_edge_tiles": [_I],
     "a3r_edge_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "a3r_edge_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -74,11 +76,20 @@ def build() -> tuple[Path, float]:
     cu, _ = _sources()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{f.stem}.o" for f in cu]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for f, o in zip(cu, objs)]
+        logs = [p.communicate()[1] for p in procs]
+        errs = [f"{f.name} ({p.returncode}):\n{log}"
+                for f, p, log in zip(cu, procs, logs) if p.returncode]
+        if errs:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errs))
         out = Path(tmp) / path.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(out),
+                              *map(str, objs)], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
         os.replace(out, path)
     return path, time.perf_counter() - t0
 

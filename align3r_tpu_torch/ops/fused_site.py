@@ -29,6 +29,7 @@ import torch
 
 from align3r_tpu_torch.models.rope import rope_tables, rotate_halves
 from align3r_tpu_torch.ops import _lib
+from align3r_tpu_torch.ops.autograd import KernelWithTwin
 
 _EPI_BIAS, _EPI_ROPE, _EPI_GELU, _EPI_RESID = 0, 1, 2, 3
 
@@ -64,9 +65,13 @@ def _proj(x, w, b):
 # ------------------------------------------------------------------- K1
 
 def site_plain(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
-               num_heads: int, ln_q=None, ln_kv=None, residual: bool = False):
+               num_heads: int, ln_q=None, ln_kv=None, residual: bool = False,
+               twin: bool = False):
     """Plain PyTorch version of K1 (the semantics of the Pallas _kernel).
-    cos/sin: (N, D) tables in xq's dtype."""
+    cos/sin: (N, D) tables in xq's dtype. twin=True gives the XLA twin
+    _site_xla (fused_site.py:427-473) instead, whose autograd is the
+    backward of attention_site_diff: it rounds p / s, not p, to v's dtype
+    before P V, and rounds the attention output before the projection."""
     raw = xq
     xq = _ln(raw, ln_q) if ln_q is not None else raw
     if isinstance(ln_kv, str):
@@ -87,11 +92,16 @@ def site_plain(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
     k = rope(heads(_proj(xkv, wk, bk)))
     v = heads(_proj(xkv, wv, bv))
     logits = torch.einsum("gbqhd,gbkhd->gbhqk", q.float(), k.float()) * D ** -0.5
-    m = logits.amax(dim=-1, keepdim=True)
+    m = logits.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(logits - m)
-    rs = 1.0 / p.sum(dim=-1)                                    # (G,B,H,Nq)
-    oh = torch.einsum("gbhqk,gbkhd->gbqhd", p.to(v.dtype).float(), v.float())
-    o = (oh * rs.permute(0, 1, 3, 2)[..., None]).to(xq.dtype).reshape(G, B, N, C)
+    if twin:
+        pn = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+        oh = torch.einsum("gbhqk,gbkhd->gbqhd", pn.float(), v.float())
+        o = oh.to(v.dtype).reshape(G, B, N, C)
+    else:
+        rs = 1.0 / p.sum(dim=-1)                                # (G,B,H,Nq)
+        oh = torch.einsum("gbhqk,gbkhd->gbqhd", p.to(v.dtype).float(), v.float())
+        o = (oh * rs.permute(0, 1, 3, 2)[..., None]).to(xq.dtype).reshape(G, B, N, C)
     y = _proj(o, wo, bo)
     return raw + y if residual else y
 
@@ -178,6 +188,12 @@ def attention_site(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, pos,
     xkv, or "same" to reuse xq's normalised tokens. Returns (G, B, N, C)."""
     D = xq.shape[-1] // num_heads
     cos, sin = site_tables(pos, D, rope_base, xq.dtype)
+    return _site(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin, num_heads,
+                 ln_q, ln_kv, residual)
+
+
+def _site(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin, num_heads,
+          ln_q, ln_kv, residual):
     if xq.is_cuda:
         out = _site_cuda(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
                          num_heads, ln_q, ln_kv, residual)
@@ -246,3 +262,71 @@ def mlp_site(x, w1, b1, w2, b2, ln=None, residual: bool = False):
 
 
 mlp_site.launches = 0
+
+
+# ------------------------------------------------- differentiable wrappers
+#
+# Training with attn_impl="fused" (fused_site.py:419-607): the kernel
+# forward (plain version on the CPU), and a backward that is autograd of the
+# XLA twins _site_xla / _mlp_xla by recompute. Weights may be fp32 masters:
+# both sides cast them to the activation dtype, as the JAX wrappers do, so
+# their gradients flow back through the cast. cos/sin get no gradient.
+
+def supported(x, num_heads: int) -> bool:
+    """The JAX gate of the fused attention site (fused_site.py:622-633)."""
+    G, B, N, C = x.shape
+    D = C // num_heads
+    working = N * N * 4 + 3 * C * N * 2 + 4 * C * C * 2 + 4 * N * C * 2
+    return (C % num_heads == 0 and D % 8 == 0 and 8 <= D <= 128
+            and D % 4 == 0 and N % 16 == 0
+            and working < 26 * 1024 * 1024)
+
+
+def mlp_supported(x, hidden: int) -> bool:
+    """The JAX gate of the fused MLP site (fused_site.py:363-386): some
+    power-of-two split of `hidden` into 128-multiples fits the VMEM gate."""
+    *_, N, C = x.shape
+    for nf in (1, 2, 4, 8, 16):
+        fb = hidden // nf
+        if hidden % nf == 0 and fb % 128 == 0 and \
+                2 * C * fb * 2 + N * fb * 6 + 4 * N * C * 2 + 4 * N * C < 30 * 2 ** 20:
+            return True
+    return False
+
+
+def attention_site_diff(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, pos,
+                        num_heads: int, rope_base: float | None = 100.0,
+                        ln_q=None, ln_kv=None, residual: bool = False):
+    """Differentiable K1: kernel forward, backward = autograd of
+    site_plain(twin=True). Same contract as attention_site."""
+    D = xq.shape[-1] // num_heads
+    cos, sin = site_tables(pos, D, rope_base, xq.dtype)
+    same = isinstance(ln_kv, str)
+    lns = [*(ln_q or (None, None)), *((None, None) if same or ln_kv is None else ln_kv)]
+
+    def call(fn, xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin, lqs, lqb,
+             lks, lkb):
+        w = [t.to(xq.dtype) for t in (wq, wk, wv, wo)]
+        lq = None if lqs is None else (lqs, lqb)
+        lkv = "same" if same else (None if lks is None else (lks, lkb))
+        return fn(xq, xkv, *w, bq, bk, bv, bo, cos, sin, num_heads, lq, lkv,
+                  residual)
+
+    def twin(*a):
+        return call(lambda *b: site_plain(*b, twin=True), *a)
+
+    return KernelWithTwin.apply(lambda *a: call(_site, *a), twin, xq, xkv, wq,
+                                wk, wv, wo, bq, bk, bv, bo, cos, sin, *lns)
+
+
+def mlp_site_diff(x, w1, b1, w2, b2, ln=None, residual: bool = False):
+    """Differentiable K2: kernel forward, backward = autograd of mlp_plain
+    on the weights cast to x's dtype (the JAX _mlp_xla). Same contract as
+    mlp_site."""
+    def call(fn, x, w1, b1, w2, b2, lns, lnb):
+        return fn(x, w1.to(x.dtype), b1, w2.to(x.dtype), b2,
+                  None if lns is None else (lns, lnb), residual)
+
+    return KernelWithTwin.apply(lambda *a: call(mlp_site, *a),
+                                lambda *a: call(mlp_plain, *a),
+                                x, w1, b1, w2, b2, *(ln or (None, None)))

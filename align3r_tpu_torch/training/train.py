@@ -1,0 +1,223 @@
+"""Training driver: epochs, eval, checkpoints, logging (port of
+align3r_tpu/training/train.py:24-377).
+
+``train(TrainArgs(...))`` builds the model from a config expression (or a
+reference constructor string), optionally loads a reference ``.pth``
+(``pretrained``), freezes the encoder side and stores its matmul and conv
+weights in bf16 (``cast_frozen``), then runs the micro-step loop of
+``training/step.py`` over a dataset object. Per epoch it appends one JSON line
+to ``log.txt`` (mean micro-step loss, test loss, seconds), writes
+``checkpoint-last`` (auto-resumed on the next call), ``checkpoint-best`` on
+the test loss and a ``checkpoint-{epoch}`` copy every ``keep_freq`` epochs,
+all ``torch.save`` files; at the end it exports ``checkpoint-final.pth`` in
+the reference format ``{"model": state_dict}`` in fp32.
+
+One device: ``ckpt_backend="orbax"``, ``zero1`` and ``n_data > 1`` (the JAX
+package's data-parallel mesh) raise NotImplementedError until the multi-GPU
+slice (ROADMAP queue 1). The JAX ``profile`` option is not carried over:
+``python -m align3r_tpu_torch.tools.profile_train`` profiles the step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+from align3r_tpu_torch.models.config import (TINY_TEST, VIT_L_512, Align3RConfig,
+                                             parse_model_string)
+from align3r_tpu_torch.models.convert import load_torch_checkpoint
+from align3r_tpu_torch.training.data import get_data_loader
+from align3r_tpu_torch.training.step import (cast_frozen_kernels, make_eval_step,
+                                             make_lr_schedule, make_optimizer,
+                                             make_train_step)
+
+BATCH_KEYS = ("img", "pred_depth", "pts3d", "camera_pose", "valid_mask")
+
+
+@dataclasses.dataclass
+class TrainArgs:
+    model: str = "Align3RConfig()"            # config expression or ctor string
+    pretrained: Optional[str] = None          # reference .pth to start from
+    train_dataset: Any = ""                   # a dataset object
+    test_dataset: Any = ""
+    seed: int = 0
+    batch_size: int = 2
+    accum_iter: int = 4
+    epochs: int = 50
+    start_epoch: int = 0
+    lr: float = 5e-5
+    min_lr: float = 1e-6
+    warmup_epochs: int = 5
+    weight_decay: float = 0.05
+    alpha: float = 0.2                        # ConfLoss alpha (train.sh:6)
+    num_workers: int = 8
+    output_dir: str = "./output"
+    eval_freq: int = 1
+    save_freq: int = 1
+    keep_freq: int = 5
+    print_freq: int = 20
+    n_data: Optional[int] = None              # multi-GPU: not ported yet
+    ckpt_backend: str = "pickle"              # torch.save; 'orbax' raises
+    cast_frozen: bool = True                  # store frozen kernels in bf16
+    zero1: bool = False                       # multi-GPU: not ported yet
+    remat: str = "full"                       # 'none' | 'full' | 'dots'
+    head_bf16: bool = False                   # bf16 DPT conv pyramid
+    max_steps_per_epoch: Optional[int] = None
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class TrainResult:
+    model: Align3R
+    optimizer: Any
+    history: List[Dict[str, float]]           # every micro-step's metrics
+    log: List[Dict[str, Any]]                 # the log.txt records
+
+
+def save_checkpoint(path, model, optimizer, step, epoch, best_so_far=None):
+    """checkpoint dir -> state.pth (model, optimizer, counters), atomically."""
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, "state.pth.tmp")
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "step": step, "epoch": epoch, "best_so_far": best_so_far}, tmp)
+    os.replace(tmp, os.path.join(path, "state.pth"))
+
+
+def export_torch_checkpoint(path, model: Align3R):
+    """The reference checkpoint format, {"model": state_dict} in fp32: the
+    bf16-stored frozen kernels are upcast exactly."""
+    torch.save({"model": {k: v.detach().float().cpu()
+                          for k, v in model.state_dict().items()}}, path)
+
+
+def _config(expr: str) -> Align3RConfig:
+    if expr.startswith("AsymmetricCroCo3DStereo"):
+        return parse_model_string(expr)
+    return eval(expr, {"__builtins__": {}},
+                {"Align3RConfig": Align3RConfig, "VIT_L_512": VIT_L_512,
+                 "TINY_TEST": TINY_TEST})
+
+
+def train(args: TrainArgs) -> TrainResult:
+    if args.ckpt_backend != "pickle" or args.zero1 or (args.n_data or 1) > 1:
+        raise NotImplementedError(
+            "ckpt_backend='orbax', zero1 and n_data > 1 are the multi-device "
+            "training path, not ported yet (ROADMAP queue 1)")
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"TrainArgs.device={args.device!r} but CUDA is not "
+                           "available (pass device='cpu' to train on the CPU)")
+    # fp32 heads and convolutions run in full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(args.output_dir, exist_ok=True)
+    log_path = os.path.join(args.output_dir, "log.txt")
+
+    # ---- model
+    cfg = _config(args.model)
+    sd = None
+    if args.pretrained:
+        sd, cfg = load_torch_checkpoint(args.pretrained, cfg)
+    with torch.device(dev):
+        model = Align3R(cfg)
+    init_align3r_(model, seed=args.seed)
+    if sd is not None:
+        model.load_state_dict(sd, strict=True)
+    if args.cast_frozen:
+        cast_frozen_kernels(model)
+
+    # ---- data, schedule, optimizer, steps
+    train_loader = get_data_loader(args.train_dataset, args.batch_size,
+                                   num_workers=args.num_workers)
+    test_loader = (get_data_loader(args.test_dataset, args.batch_size,
+                                   num_workers=args.num_workers, shuffle=False)
+                   if args.test_dataset else None)
+    steps_per_epoch = max(len(train_loader), 1)
+    sched = make_lr_schedule(args.lr, args.min_lr, args.warmup_epochs,
+                             args.epochs, steps_per_epoch)
+    opt = make_optimizer(model, sched, weight_decay=args.weight_decay,
+                         accum_iter=args.accum_iter)
+    train_step = make_train_step(
+        model, opt, alpha=args.alpha, remat=args.remat,
+        head_dtype=torch.bfloat16 if args.head_bf16 else torch.float32)
+    eval_step = make_eval_step(model)
+
+    step, best_so_far = 0, None
+    last = os.path.join(args.output_dir, "checkpoint-last")
+    if os.path.exists(os.path.join(last, "state.pth")):      # auto-resume
+        ck = torch.load(os.path.join(last, "state.pth"), map_location=dev,
+                        weights_only=False)
+        model.load_state_dict(ck["model"], strict=True)
+        opt.load_state_dict(ck["optimizer"])
+        step, best_so_far = ck["step"], ck.get("best_so_far")
+        args.start_epoch = ck["epoch"] + 1
+        print(f"resumed from {last} at epoch {args.start_epoch}")
+
+    def put_batch(batch):
+        return {vn: {k: torch.as_tensor(np.asarray(v)).to(dev)
+                     for k, v in bv.items() if k in BATCH_KEYS}
+                for vn, bv in batch.items()}
+
+    history, log = [], []
+    for epoch in range(args.start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        t0 = time.time()
+        metrics = []
+        for it, batch in enumerate(train_loader):
+            if args.max_steps_per_epoch and it >= args.max_steps_per_epoch:
+                break
+            metrics.append(train_step(put_batch(batch)))
+            step += 1
+            if it % args.print_freq == 0:
+                loss = float(metrics[-1]["loss"])
+                if not math.isfinite(loss):
+                    raise FloatingPointError(f"loss is {loss}, stopping training")
+                print(f"epoch {epoch} it {it}/{steps_per_epoch} loss {loss:.4f} "
+                      f"lr {sched(opt.count):.2e}")
+        # one host sync per epoch: every micro-step's metrics as floats
+        host = [{k: float(v) for k, v in m.items()} for m in metrics]
+        bad = [i for i, h in enumerate(host) if not math.isfinite(h["loss"])]
+        if bad:
+            raise FloatingPointError(f"non-finite loss at micro-steps {bad} "
+                                     f"of epoch {epoch}")
+        history += host
+        train_secs = time.time() - t0
+
+        test_loss = None
+        if test_loader is not None and (epoch + 1) % args.eval_freq == 0:
+            test_loader.set_epoch(0)
+            vals = []
+            for it, batch in enumerate(test_loader):
+                if args.max_steps_per_epoch and it >= args.max_steps_per_epoch:
+                    break
+                vals.append(float(eval_step(put_batch(batch))))
+            test_loss = float(np.mean(vals)) if vals else None
+            if test_loss is not None and (best_so_far is None
+                                          or test_loss < best_so_far):
+                best_so_far = test_loss
+                save_checkpoint(os.path.join(args.output_dir, "checkpoint-best"),
+                                model, opt, step, epoch, best_so_far)
+
+        rec = {"epoch": epoch,
+               "train_loss": float(np.mean([h["loss"] for h in host])) if host else None,
+               "test_loss": test_loss, "steps": len(host),
+               "train_s": train_secs, "time_s": time.time() - t0}
+        log.append(rec)
+        with open(log_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if (epoch + 1) % args.save_freq == 0 or epoch + 1 == args.epochs:
+            save_checkpoint(last, model, opt, step, epoch, best_so_far)
+        if (epoch + 1) % args.keep_freq == 0:
+            save_checkpoint(os.path.join(args.output_dir, f"checkpoint-{epoch + 1}"),
+                            model, opt, step, epoch, best_so_far)
+
+    export_torch_checkpoint(os.path.join(args.output_dir, "checkpoint-final.pth"),
+                            model)
+    return TrainResult(model, opt, history, log)

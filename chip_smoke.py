@@ -21,8 +21,22 @@ final result line:
                 kernels' launch counters are zeroed right before the call and
                 every kernel must have launched; outputs must be finite and of
                 the expected shapes. A second, warm run gives pairs/s and it/s.
-Then the card line as nvidia-smi prints it, one JSON line with the kernels,
-and last {"ok": true, "device": {...}}.
+  6. train    - the fine-tuning path: K6 against its plain version at the
+                training shapes (and its time beside torch's SDPA), K6's and
+                the differentiable K1/K2 sites' gradients against autograd of
+                their twins, then align3r_tpu_torch.training.train.train at
+                ViT-L width on 288x512 pairs with the reference per-GPU recipe
+                (batch 2, accum_iter 4, remat full, frozen encoder in bf16,
+                fp32 heads) over an in-memory synthetic dataset of 16 pairs,
+                2 epochs (4 applied updates). The counters are zeroed right
+                before the call; K6 must launch 80 times per micro-step, every
+                loss must be finite, trainable parameters must move, frozen
+                ones must stay bit-identical, and checkpoint-final.pth must
+                reload strictly.
+Then the card line as nvidia-smi prints it, one JSON line with the kernels
+(time, plain time, bound, launches on their path, library-call time), and
+last {"ok": true, "device": {...}}. The process fails if jax or the JAX
+package (align3r_tpu) was imported.
 """
 from __future__ import annotations
 
@@ -30,12 +44,16 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES, H, W = 24, 288, 512
 BATCH = 32
+TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
+# published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
+PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 
 def fail(phase: str, msg: str) -> int:
@@ -63,6 +81,14 @@ def max_err(a, b):
     d = (a.float() - b.float()).abs().max().item()
     scale = b.float().abs().max().item()
     return d, d / max(scale, 1e-30), scale
+
+
+def bound(nbytes, ops, peak):
+    """(ms, what bounds it): the least time for `nbytes` of device memory
+    traffic (each input read once, each output written once) and `ops`
+    operations at `peak` per second."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -108,9 +134,14 @@ def check_sites(dev, gen):
         err, rel, scale = max_err(out, ref)
         ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
         ms, pms = cuda_time(kern, 10), cuda_time(plain, 3)
+        act = G * Bn * N * C * 2
+        nbytes = (act * (3 if cross else 2) + 4 * G * C * C * 2 + 4 * G * C * 4
+                  + (2 if cross else 1) * 2 * G * C * 4 + 2 * N * (C // Hh) * 2)
+        b_ms, b_by = bound(nbytes, 8 * G * Bn * N * C * C + 4 * G * Bn * N * N * C,
+                           PEAK_BF16)
         rows.append(dict(kernel="K1", shape=f"{name} G={G} B={Bn} N={N} C={C} H={Hh}",
                          max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, plain_ms=pms))
+                         ok=ok, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by))
         del x, kv, w, out, ref
     for name, G, Bn, C in (("encoder mlp", 1, 16, 1024), ("decoder mlp", 2, 32, 768)):
         N = pos.shape[0]
@@ -127,9 +158,12 @@ def check_sites(dev, gen):
         err, rel, scale = max_err(out, ref)
         ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
         ms, pms = cuda_time(kern, 10), cuda_time(plain, 3)
+        nbytes = (2 * G * Bn * N * C * 2 + 2 * G * C * F * 2 + G * (F + C) * 4
+                  + 2 * G * C * 4)
+        b_ms, b_by = bound(nbytes, 4 * G * Bn * N * C * F, PEAK_BF16)
         rows.append(dict(kernel="K2", shape=f"{name} G={G} B={Bn} N={N} C={C} F={F}",
                          max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, plain_ms=pms))
+                         ok=ok, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by))
         del x, w1, w2, out, ref
     return rows
 
@@ -160,12 +194,20 @@ def check_edge(dev, gen):
         torch.cuda.synchronize()
         tag = "bf16" if dt == torch.bfloat16 else "fp32"
         ef = max_err(lk, lp)
+        # bytes: proj, the 3x4 matrices, pred, w, idx; about 30 fp32
+        # operations per (term, pixel): transform, residual, norm, weight
+        isz = 2 if dt == torch.bfloat16 else 4
+        fwd_bytes = n * 3 * A * 4 + e2 * 48 + e2 * 3 * A * isz + e2 * A * isz + e2 * 4
+        b_ms, b_by = bound(fwd_bytes + 4, 30 * e2 * A, PEAK_FP32)
         rows.append(dict(kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
                          max_abs_err=ef[0], max_rel_err=ef[1], tol=1e-4 * ef[2],
                          ok=ef[0] <= 1e-4 * ef[2], ms=cuda_time(kf, 20),
-                         plain_ms=cuda_time(pf, 3)))
+                         plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by))
         e1, e2m = max_err(dpk, dpp), max_err(dmk, dmp)
+        # the forward's reads, plus dproj and dM written; about twice its work
+        b_ms, b_by = bound(fwd_bytes + n * 3 * A * 4 + e2 * 48, 60 * e2 * A, PEAK_FP32)
         rows.append(dict(kernel="K4", shape=f"{tag} e2={e2} A={A} n={n}",
+                         bound_ms=b_ms, bound_by=b_by,
                          max_abs_err=max(e1[0], e2m[0]),
                          max_rel_err=max(e1[1], e2m[1]),
                          tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
@@ -333,6 +375,252 @@ def main_path(dev):
     return launches, rates
 
 
+# ----------------------------------------------------------------- phase 6
+
+def check_k6(dev, gen):
+    """K6 against its plain version at the training path's shapes (VIT_L_512
+    at 288x512, 2 pairs: the encoder's 4 images x 16 heads, the decoder's
+    2 streams x 2 pairs x 12 heads, and the prior branch's 4 images x 12
+    heads), bf16, and at the encoder's shape in fp32; beside each, torch's
+    scaled_dot_product_attention on the same inputs (the library call the
+    port never makes). Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max)
+    in bf16 as for K1; 1e-4 x max in fp32 (fp32 arithmetic on both sides,
+    sums over 576 keys in another order)."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import small_attention as sa
+    N = (H // 16) * (W // 16)
+    rows = []
+    for name, shape, dt in (("encoder", (4, 16, N, 64), torch.bfloat16),
+                            ("decoder self/cross", (4, 12, N, 64), torch.bfloat16),
+                            ("prior branch", (4, 12, N, 64), torch.bfloat16),
+                            ("encoder fp32", (4, 16, N, 64), torch.float32)):
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dt) for _ in range(3))
+        kern = lambda: sa.small_attention(q, k, v)
+        plain = lambda: sa.small_attention_plain(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        tol = (1.6e-2 if dt == torch.bfloat16 else 1e-4) * scale
+        B_, H_, N_, D_ = shape
+        isz = out.element_size()
+        b_ms, b_by = bound(4 * B_ * H_ * N_ * D_ * isz, 4 * B_ * H_ * N_ * N_ * D_,
+                           PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        rows.append(dict(kernel="K6", shape=f"{name} {tuple(shape)} "
+                         f"{'bf16' if dt == torch.bfloat16 else 'fp32'}",
+                         max_abs_err=err, max_rel_err=rel, tol=tol,
+                         ok=err <= tol and torch.isfinite(out.float()).all().item(),
+                         ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+                         library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out, ref
+    return rows
+
+
+def check_grads(dev, gen):
+    """K6's gradient on the card at (4, 12, 576, 64) bf16, and the
+    differentiable K1/K2 sites' (small shape), against autograd of their
+    plain twins on the card. The backward of each is autograd of that twin,
+    so the tolerance is 1e-5 x max|twin gradient|; the forwards are held to
+    the twins at 2 bf16 ulps."""
+    import torch
+    from align3r_tpu_torch.models.rope import make_grid_positions
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+    bf = torch.bfloat16
+    out = {}
+
+    def rel_grads(got, ref):
+        return max(max_err(a, b)[1] for a, b in zip(got, ref))
+
+    N = (H // 16) * (W // 16)
+    qkv = [torch.randn(4, 12, N, 64, generator=gen, device=dev).to(bf).requires_grad_(True)
+           for _ in range(3)]
+    g = torch.randn(4, 12, N, 64, generator=gen, device=dev).to(bf)
+    got = torch.autograd.grad(sa.small_attention(*qkv), qkv, g)
+    ref = torch.autograd.grad(sa.small_attention_twin(*qkv), qkv, g)
+    out["K6 grad (4,12,576,64)"] = rel_grads(got, ref)
+
+    G, B_, C, Hh, F = 2, 2, 768, 12, 3072
+    pos = make_grid_positions(H // 16, W // 16, device=dev)
+    Np = pos.shape[0]
+    rnd = lambda *s, sc=1.0: (torch.randn(*s, generator=gen, device=dev) * sc).requires_grad_(True)
+    x = (torch.randn(G, B_, Np, C, generator=gen, device=dev).to(bf)).requires_grad_(True)
+    w = [rnd(G, C, C, sc=C ** -0.5) for _ in range(4)]
+    b = [rnd(G, C, sc=0.1) for _ in range(4)]
+    ln = ((1 + 0.1 * torch.randn(G, C, generator=gen, device=dev)).requires_grad_(True),
+          rnd(G, C, sc=0.1))
+    gy = torch.randn(G, B_, Np, C, generator=gen, device=dev).to(bf)
+    leaves = [x, *w, *b, *ln]
+    y = fs.attention_site_diff(x, x, *w, *b, pos, Hh, 100.0, ln_q=ln, ln_kv="same",
+                               residual=True)
+    cos, sin = fs.site_tables(pos, C // Hh, 100.0, bf)
+    yt = fs.site_plain(x, x, *[t.to(bf) for t in w], *b, cos, sin, Hh, ln_q=ln,
+                       ln_kv="same", residual=True, twin=True)
+    out["K1 site_diff fwd vs twin"] = max_err(y, yt)[1]
+    out["K1 site_diff grad"] = rel_grads(torch.autograd.grad(y, leaves, gy),
+                                         torch.autograd.grad(yt, leaves, gy))
+    w1, w2 = rnd(G, C, F, sc=C ** -0.5), rnd(G, F, C, sc=F ** -0.5)
+    b1, b2 = rnd(G, F, sc=0.1), rnd(G, C, sc=0.1)
+    leaves = [x, w1, b1, w2, b2, *ln]
+    y = fs.mlp_site_diff(x, w1, b1, w2, b2, ln=ln, residual=True)
+    yt = fs.mlp_plain(x, w1.to(bf), b1, w2.to(bf), b2, ln=ln, residual=True)
+    out["K2 mlp_diff fwd vs twin"] = max_err(y, yt)[1]
+    out["K2 mlp_diff grad"] = rel_grads(torch.autograd.grad(y, leaves, gy),
+                                        torch.autograd.grad(yt, leaves, gy))
+    bad = {k: v for k, v in out.items()
+           if v > (1.6e-2 if "fwd" in k else 1e-5)}
+    if bad:
+        raise AssertionError(f"gradient checks out of tolerance: {bad}")
+    return out
+
+
+class SyntheticPairs:
+    """An in-memory two-view training set at 288x512: per pair a smooth
+    synthetic depth for each view, cam2world poses a small motion apart,
+    world points from the depth through a 500 px pinhole, images in [-1, 1],
+    and the prior pointcloud from a perturbed depth (pixel_to_pointcloud).
+    The dataset object the port's get_data_loader takes."""
+
+    resolutions = [(W, H)]
+
+    def __init__(self, n, seed=0):
+        import numpy as np
+        import torch
+        from align3r_tpu_torch.geometry.core import pixel_to_pointcloud
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+        self.items = []
+        for i in range(n):
+            base = np.eye(4, dtype=np.float32)
+            base[:3, 3] = rng.uniform(-1, 1, 3)
+            views = []
+            for j in range(2):
+                ph = rng.uniform(0, 2 * np.pi, 3)
+                depth = (2.0 + 0.5 * np.sin(xx / 60 + ph[0]) + 0.3 * np.cos(yy / 45 + ph[1])
+                         ).astype(np.float32)
+                cam = np.stack([(xx - W / 2) * depth / 500.0,
+                                (yy - H / 2) * depth / 500.0, depth], -1)
+                pose = base.copy()
+                a = 0.05 * j
+                pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                                [-np.sin(a), 0, np.cos(a)]]
+                pose[:3, 3] += [0.1 * j, 0, 0]
+                pts = cam @ pose[:3, :3].T + pose[:3, 3]
+                img = np.stack([np.sin(xx / (40 + 7 * c) + ph[c]) * np.cos(yy / 30 - ph[2])
+                                for c in range(3)], -1)
+                noisy = depth * (1 + 0.05 * rng.standard_normal(depth.shape))
+                prior = pixel_to_pointcloud(torch.from_numpy(noisy.astype(np.float32)),
+                                            500.0).numpy()
+                views.append({"img": img.astype(np.float32), "pred_depth": prior,
+                              "pts3d": pts.astype(np.float32), "camera_pose": pose,
+                              "valid_mask": rng.uniform(0, 1, (H, W)) > 0.05})
+            self.items.append(views)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx[0] if isinstance(idx, tuple) else idx]
+
+
+def train_path(dev):
+    """The fine-tuning driver at ViT-L width (see the module docstring)."""
+    import math
+    import torch
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.config import Align3RConfig
+    from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+    from align3r_tpu_torch.training.step import is_trainable
+    from align3r_tpu_torch.training.train import (TrainArgs, export_torch_checkpoint,
+                                                  train)
+
+    t0 = time.perf_counter()
+    cfg = Align3RConfig(img_size=(H, W))     # VIT_L_512 at the 288x512 recipe size
+    ds = SyntheticPairs(TRAIN_PAIRS)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
+        # the recipe starts from a checkpoint: one from seeded random weights,
+        # final head convs scaled so random heads stay inside expm1's range
+        with torch.device(dev):
+            start = init_align3r_(Align3R(cfg), seed=0)
+        with torch.no_grad():
+            for h in (start.downstream_head1, start.downstream_head2):
+                h.dpt.head[4].weight.mul_(0.01)
+        pretrained = os.path.join(out, "start.pth")
+        export_torch_checkpoint(pretrained, start)
+        del start
+        torch.cuda.empty_cache()
+        print(f"train: data + start checkpoint in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        args = TrainArgs(model="Align3RConfig(img_size=(288, 512))", pretrained=pretrained,
+                         train_dataset=ds, batch_size=TRAIN_BATCH, accum_iter=ACCUM,
+                         epochs=TRAIN_EPOCHS, warmup_epochs=0, num_workers=2,
+                         output_dir=out, save_freq=TRAIN_EPOCHS, keep_freq=10 ** 6,
+                         print_freq=4, remat="full", cast_frozen=True, head_bf16=False,
+                         device=str(dev))
+        counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd,
+                    el.edge_loss_bwd, sa.small_attention)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t1 = time.perf_counter()
+        res = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = len(res.history)
+        print(f"train: {steps} micro-steps, {res.optimizer.count} applied updates in "
+              f"{wall:.1f} s, launches {json.dumps(launches)}", flush=True)
+
+        start_sd = torch.load(pretrained, map_location=dev, weights_only=True)["model"]
+        frozen_bad, moved, total = [], {}, {}
+        for k, v in res.model.state_dict().items():
+            ref = start_sd[k].to(v.dtype)
+            if is_trainable(k):
+                grp = k.split(".", 1)[0]
+                total[grp] = total.get(grp, 0) + 1
+                moved[grp] = moved.get(grp, 0) + (not torch.equal(v, ref))
+            elif not torch.equal(v, ref):
+                frozen_bad.append(k)
+        del start_sd
+        sd = torch.load(os.path.join(out, "checkpoint-final.pth"), map_location="cpu",
+                        weights_only=True)["model"]
+        with torch.device("meta"):
+            fresh = Align3R(cfg)
+        fresh.load_state_dict(sd, strict=True, assign=True)
+        reload_ok = all(fresh.state_dict()[k].dtype == torch.float32 for k in sd)
+        del sd, fresh
+    losses = [h["loss"] for h in res.history]
+    checks = {
+        "losses_finite": len(losses) == TRAIN_EPOCHS * TRAIN_PAIRS // TRAIN_BATCH
+        and all(math.isfinite(x) for x in losses),
+        "k6_80_per_micro_step": launches["small_attention"] == 80 * steps,
+        "trainable_moved": all(moved[g] > 0 for g in total),
+        "frozen_bit_identical": not frozen_bad,
+        "final_pth_reloads_strict": reload_ok,
+        "applied_updates": res.optimizer.count == steps // ACCUM >= 2,
+    }
+    warm = res.log[-1]
+    ms_step = warm["train_s"] / warm["steps"] * 1e3
+    stats = {"micro_steps": steps, "applied_updates": res.optimizer.count,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "warm_ms_per_micro_step": ms_step,
+             "train_pairs_per_s": TRAIN_BATCH / ms_step * 1e3,
+             "peak_mem_gb": peak, "k6_launches_per_micro_step": launches["small_attention"] / steps,
+             "moved_tensors": moved, "trainable_tensors": total,
+             "frozen_changed": frozen_bad[:5]}
+    print(f"train: checks {json.dumps(checks)}", flush=True)
+    print(f"train: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"train path checks failed: {checks}")
+    return launches, stats
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "align3r_tpu_torch")):
         return fail("setup", "align3r_tpu_torch/ is not beside chip_smoke.py: "
@@ -372,11 +660,30 @@ def main() -> int:
 
         phase = "main"
         launches, rates = main_path(dev)
+        torch.cuda.empty_cache()
+
+        phase = "train"
+        k6_rows = check_k6(dev, gen)
+        for r in k6_rows:
+            print("train: " + json.dumps(r), flush=True)
+        if not all(r["ok"] for r in k6_rows):
+            return fail(phase, "K6 out of tolerance")
+        print("train: gradients " + json.dumps(check_grads(dev, gen)), flush=True)
+        torch.cuda.empty_cache()
+        train_launches, train_stats = train_path(dev)
+        # the K6 share of a micro-step, from the kernel times above: 24
+        # encoder-shaped and 56 decoder-shaped launches per micro-step
+        k6_ms = 24 * k6_rows[0]["ms"] + 56 * k6_rows[1]["ms"]
+        train_stats["k6_share_est"] = k6_ms / train_stats["warm_ms_per_micro_step"]
+        print(f"train: K6 {k6_ms:.3f} ms per micro-step, "
+              f"{100 * train_stats['k6_share_est']:.1f}% of it", flush=True)
+        rows += k6_rows
     except Exception:
         traceback.print_exc()
         return fail(phase, "exception (traceback above)")
-    if "jax" in sys.modules:
-        return fail("imports", "jax was imported")
+    bad_mods = [m for m in sys.modules if m.split(".")[0] in ("jax", "align3r_tpu")]
+    if bad_mods:
+        return fail("imports", f"jax or the JAX package was imported: {bad_mods[:5]}")
 
     src = "align3r_tpu_torch/csrc/"
     meta = {
@@ -384,20 +691,26 @@ def main() -> int:
         "K2": ("mlp_site", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:242"),
         "K3": ("edge_loss_fwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:172"),
         "K4": ("edge_loss_bwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:207"),
+        "K6": ("small_attention", src + "small_attention.cu",
+               "align3r_tpu/ops/small_attention.py:47"),
     }
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
+        path = train_launches if k == "K6" else launches
         kernels.append({"name": f"{k} {fn}", "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[fn],
+                        "replaces": replaces, "launches": path[fn],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+                        "bound_ms": mine[0]["bound_ms"], "bound_by": mine[0]["bound_by"],
+                        "library_ms": mine[0].get("library_ms"),
                         "shape": mine[0]["shape"],
-                        "checks": [{"shape": r["shape"], "ms": r["ms"],
-                                    "plain_ms": r["plain_ms"],
-                                    "max_abs_err": r["max_abs_err"]} for r in mine]})
+                        "checks": [{k2: r.get(k2) for k2 in (
+                            "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                            "bound_by", "max_abs_err")} for r in mine]})
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "main_path": rates}), flush=True)
+    print(json.dumps({"kernels": kernels, "main_path": rates, "train_path": train_stats}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

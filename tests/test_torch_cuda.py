@@ -9,9 +9,13 @@ On a machine with an NVIDIA GPU (and nvcc; the kernels build on first use):
 the port nor this file needs.) Shapes are small but exercise the ragged
 edges: token counts that are not a multiple of the 64-row attention tile or
 the 128-row GEMM tile, pixel counts that are not a multiple of the 1024-pixel
-edge-loss tile, and an image with no edge terms. Tolerances as in
-chip_smoke.py: 2 bf16 ulps of the largest output for K1/K2, 1e-4 of the
-largest value for K3/K4 (fp32 arithmetic, other sum order).
+edge-loss tile, and an image with no edge terms; for K6, query and key
+counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
+padded in shared memory (8, 40, 128). Tolerances as in chip_smoke.py: 2 bf16
+ulps of the largest output for K1/K2/K6 in bf16, 1e-4 of the largest value
+for K3/K4 and for K6 in fp32 (fp32 arithmetic, other sum order). The
+gradients of K6 and of the differentiable K1/K2 sites are autograd of their
+plain twins on the card, so they are held to those twins' autograd at 1e-5.
 """
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ import torch
 
 from align3r_tpu_torch.ops import edge_loss as el
 from align3r_tpu_torch.ops import fused_site as fs
+from align3r_tpu_torch.ops import small_attention as sa
 from align3r_tpu_torch.models.rope import make_grid_positions
 
 pytestmark = pytest.mark.cuda
@@ -115,3 +120,152 @@ def test_edge_loss_autograd_on_the_card(dev):
     el.edge_loss_fwd_plain(p2, m2, pred, w, idx).backward()
     for a, b in ((proj.grad, p2.grad), (pw34.grad, m2.grad)):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 3, 80, 64, 80), (1, 2, 48, 40, 100),
+                                   (1, 1, 64, 128, 64), (2, 2, 16, 8, 33)])
+def test_small_attention_kernel(dev, dtype, shape):
+    B, H, Nq, D, Nk = shape
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(B, H, n, D, generator=g, device=dev).to(dtype)
+               for n in (Nq, Nk, Nk))
+    before = sa.small_attention.launches
+    out = sa.small_attention(q, k, v)
+    assert sa.small_attention.launches == before + 1 and out.dtype == dtype
+    ref = sa.small_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_small_attention_gradient(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 3, 96, 64, generator=g, device=dev).to(dtype).requires_grad_(True)
+               for _ in range(3))
+    gout = torch.randn(2, 3, 96, 64, generator=g, device=dev).to(dtype)
+    sa.small_attention(q, k, v).backward(gout)
+    q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sa.small_attention_twin(q2, k2, v2).backward(gout)
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert (a.grad.float() - b.grad.float()).abs().max().item() <= \
+            1e-5 * b.grad.float().abs().max().item()
+
+
+def test_diff_sites_on_the_card(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    G, B, C, H, F = 2, 2, 128, 2, 512
+    pos = make_grid_positions(8, 10, device=dev)
+    N = pos.shape[0]
+    rnd = lambda *s, sc=1.0, dt=torch.float32: (torch.randn(*s, generator=g, device=dev) * sc).to(dt)
+    x = rnd(G, B, N, C, dt=torch.bfloat16)
+    w = [rnd(G, C, C, sc=C ** -0.5) for _ in range(4)]
+    b = [rnd(G, C, sc=0.1) for _ in range(4)]
+    ln = (1 + rnd(G, C, sc=0.1), rnd(G, C, sc=0.1))
+    gout = rnd(G, B, N, C, dt=torch.bfloat16)
+    leaves = [x, *w, *b, *ln]
+    for t in leaves:
+        t.requires_grad_(True)
+    before = fs.attention_site.launches
+    out = fs.attention_site_diff(x, x, *w, *b, pos, H, 100.0, ln_q=ln, ln_kv="same",
+                                 residual=True)
+    assert fs.attention_site.launches == before + 1
+    got = torch.autograd.grad(out, leaves, gout)
+    cos, sin = fs.site_tables(pos, C // H, 100.0, torch.bfloat16)
+    twin = fs.site_plain(x, x, *[t.to(torch.bfloat16) for t in w], *b, cos, sin, H,
+                         ln_q=ln, ln_kv="same", residual=True, twin=True)
+    ref = torch.autograd.grad(twin, leaves, gout)
+    _bf16_close(out, twin)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max().item() <= 1e-5 * r.float().abs().max().item()
+
+    w1, w2 = rnd(G, C, F, sc=C ** -0.5), rnd(G, F, C, sc=F ** -0.5)
+    b1, b2 = rnd(G, F, sc=0.1), rnd(G, C, sc=0.1)
+    leaves = [x, w1, b1, w2, b2, *ln]
+    for t in leaves:
+        t.requires_grad_(True)
+    before = fs.mlp_site.launches
+    out = fs.mlp_site_diff(x, w1, b1, w2, b2, ln=ln, residual=True)
+    assert fs.mlp_site.launches == before + 1
+    got = torch.autograd.grad(out, leaves, gout)
+    twin = fs.mlp_plain(x, w1.to(torch.bfloat16), b1, w2.to(torch.bfloat16), b2, ln=ln,
+                        residual=True)
+    ref = torch.autograd.grad(twin, leaves, gout)
+    _bf16_close(out, twin)
+    for a, r in zip(got, ref):
+        assert (a.float() - r.float()).abs().max().item() <= 1e-5 * r.float().abs().max().item()
+
+
+def _tiny_model(dev):
+    """A small Align3R whose attentions take the card's routes: 128 tokens
+    (128 x 256 images), D = 64 heads, C % 128 == 0 for K1/K2."""
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.config import Align3RConfig
+    from align3r_tpu_torch.training import step as S
+    cfg = Align3RConfig(img_size=(128, 256), enc_embed_dim=128, enc_depth=2,
+                        enc_num_heads=2, dec_embed_dim=128, dec_depth=8, dec_num_heads=2)
+    with torch.device(dev):
+        model = init_align3r_(Align3R(cfg), seed=0)
+    with torch.no_grad():
+        for z in model.zero_convs:
+            z[0].weight.normal_(0, 0.05)
+        for h in (model.downstream_head1, model.downstream_head2):
+            h.dpt.head[4].weight.mul_(0.1)
+    S.freeze_params(model)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def view():
+        pose = torch.eye(4, device=dev).expand(1, 4, 4).clone()
+        return {"img": torch.rand(1, 128, 256, 3, generator=g, device=dev) * 2 - 1,
+                "pred_depth": torch.rand(1, 128, 256, 3, generator=g, device=dev),
+                "pts3d": torch.randn(1, 128, 256, 3, generator=g, device=dev) + 3,
+                "camera_pose": pose,
+                "valid_mask": torch.rand(1, 128, 256, generator=g, device=dev) > 0.1}
+    return model, {"view1": view(), "view2": view()}
+
+
+def test_remat_modes_on_the_card(dev):
+    """Gradients under remat none / full / dots agree (cuDNN's convolution
+    backward sums in no fixed order: 1e-4 of the largest gradient), and
+    K6 launches 20 times in the forward (2 encoder, 16 decoder, 2 prior
+    blocks) plus 18 recomputed under full and dots remat."""
+    from align3r_tpu_torch.training import step as S
+    model, batch = _tiny_model(dev)
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = {}
+    for remat in ("none", "full", "dots"):
+        before = sa.small_attention.launches
+        loss, _ = S.loss_fn(model, batch, remat=remat)
+        grads[remat] = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        assert sa.small_attention.launches - before == (20 if remat == "none" else 38)
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs if g is not None])
+    ref = flat(grads["none"])
+    assert torch.isfinite(ref).all()
+    for remat in ("full", "dots"):
+        assert (flat(grads[remat]) - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_fused_training_route_on_the_card(dev):
+    """attn_impl="fused" trains through the differentiable K1/K2 sites (one
+    attention and one MLP site per block, two attention sites per decoder
+    layer): its loss and gradients agree with the "xla" route's within the
+    bf16 network's rounding (5e-2 of the largest value: the two routes round
+    at other points through 12 blocks)."""
+    from align3r_tpu_torch.training import step as S
+    model, batch = _tiny_model(dev)
+    params = [p for p in model.parameters() if p.requires_grad]
+    out = {}
+    for impl in ("xla", "fused"):
+        before = (fs.attention_site.launches, fs.mlp_site.launches)
+        loss, _ = S.loss_fn(model, batch, attn_impl=impl, remat="none")
+        out[impl] = (loss.item(), torch.autograd.grad(loss, params, allow_unused=True))
+        torch.cuda.synchronize()
+        launched = (fs.attention_site.launches - before[0], fs.mlp_site.launches - before[1])
+        assert launched == ((0, 0) if impl == "xla" else (2 + 16 + 2, 2 + 8 + 2))
+    assert abs(out["fused"][0] - out["xla"][0]) <= 5e-2 * abs(out["xla"][0])
+    flat = lambda gs: torch.cat([g.float().flatten() for g in gs if g is not None])
+    ref = flat(out["xla"][1])
+    assert (flat(out["fused"][1]) - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()

@@ -128,7 +128,7 @@ def test_blocks_match_jax(weights):
     pos = jgrid(gh, gw, batch=2)
     layer = jax.tree.map(lambda a: a[1], params["enc_blocks"])
     ref = jB.apply_block(layer, jnp.asarray(x), pos, CFG.enc_num_heads)
-    got = tB.apply_block(pm.enc_blocks[1], torch.from_numpy(x)[None],
+    got = tB.apply_block_prepared(pm.enc_blocks[1], torch.from_numpy(x)[None],
                          torch.from_numpy(np.asarray(pos[0])), CFG.enc_num_heads)[0]
     assert _rel(got.numpy(), ref) <= 1e-5
     y = r.standard_normal((2, 2, gh * gw, CFG.dec_embed_dim)).astype(np.float32)
@@ -136,7 +136,7 @@ def test_blocks_match_jax(weights):
                       params["dec_blocks2"])
     ref = jB.apply_decoder_block_stacked(lg, jnp.asarray(y),
                                          jnp.stack([pos, pos]), CFG.dec_num_heads)
-    got = tB.apply_decoder_block_stacked(pm.dec_layers[3], torch.from_numpy(y),
+    got = tB.apply_decoder_layer_prepared(pm.dec_layers[3], torch.from_numpy(y),
                                          torch.from_numpy(np.asarray(pos[0])),
                                          CFG.dec_num_heads)
     assert _rel(got.numpy(), ref) <= 1e-5
