@@ -7,14 +7,18 @@ against it by the `tests/test_torch_*.py` parity tests.
 - ``models``     — the Align3R two-view network as ``nn.Module``s whose
   parameter names are the reference checkpoint keys, plus the functional
   inference path that runs on prepared (stream-stacked, bf16) weights and
-  the differentiable training forward (``Align3R.forward``).
+  the differentiable training forward (``Align3R.forward``); the two RAFT
+  optical-flow networks (SEA-RAFT and classic RAFT) and their loaders.
 - ``ops``        — hand-written Hopper kernels (``csrc/``), each beside its
   plain PyTorch version: the fused attention and MLP sites, the fused
-  edge-residual loss (forward and backward) and attention for short
-  sequences; the attention dispatch.
-- ``geometry``   — camera geometry and pose parameterisations.
+  edge-residual loss (forward and backward) and the row permute that packs
+  its observations, and attention for short sequences; the attention
+  dispatch.
+- ``geometry``   — camera geometry, pose parameterisations and
+  depth-based warping.
 - ``inference``  — the pairwise engine (unique-image encode, batched decode).
-- ``alignment``  — MST initialisation and the Adam global-alignment solve.
+- ``alignment``  — MST initialisation, the Adam global-alignment solve with
+  its flow terms, and the self-supervised motion masks.
 - ``pipeline``   — ``reconstruct_scene``, the per-video entry point.
 - ``training``   — losses, the train step and optimizer, the data loader
   and ``train``, the fine-tuning entry point.

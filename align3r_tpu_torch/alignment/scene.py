@@ -24,7 +24,8 @@ from align3r_tpu_torch.alignment.schedules import schedule_array
 from align3r_tpu_torch.geometry.core import geotrf, safe_norm, xy_grid
 from align3r_tpu_torch.geometry.poses import (pose_vec_to_matrix,
                                               sim3_vec_to_matrix)
-from align3r_tpu_torch.ops.edge_loss import edge_loss, fold_pose_adaptors, term_csr
+from align3r_tpu_torch.ops.edge_loss import (edge_loss, fold_pose_adaptors,
+                                             permute_packed, term_csr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +93,9 @@ class SceneData:
     # packed observations for the fused kernels (pack_scene)
     packed_pred: Optional[torch.Tensor] = None    # (2E, 3, A) bf16 | fp32
     packed_w: Optional[torch.Tensor] = None       # (2E, A), 1/(E*A) folded in
-    packed_idx: Optional[torch.Tensor] = None     # (2E,) int32 image per term
-    packed_order: Optional[torch.Tensor] = None   # (2E,) int32 terms by image
+    packed_idx: Optional[torch.Tensor] = None     # (2E,) int32 image per slot
+    packed_perm: Optional[torch.Tensor] = None    # (2E,) int64 term per slot
+    packed_order: Optional[torch.Tensor] = None   # (2E,) int32 slots by image
     packed_offsets: Optional[torch.Tensor] = None  # (n + 1,) int32 CSR offsets
 
 
@@ -265,21 +267,36 @@ def pairwise_pts_loss(params, data: SceneData, cfg: SceneConfig, step=0):
 
 def pack_scene(data: SceneData, cfg: SceneConfig,
                dtype=torch.bfloat16) -> SceneData:
-    """One-time pack of the frozen observations for K3/K4: terms in natural
-    order [i-terms; j-terms], channel-major (2E, 3, A) in `dtype`, weights
-    (2E, A) with the 1/(E*A) normalisation divided in fp32 before the cast,
-    and the CSR of terms by image for the backward. Same values as the JAX
-    "streamed" pack (scene.py:372-411) without its padding."""
+    """One-time pack of the frozen observations for K3/K4, as the JAX "fast"
+    pack (scene.py:416-455) builds it: each per-edge buffer is laid out
+    channel-major in natural order, (E, 3, A) points in `dtype` and (E, A)
+    weights with the 1/(E*A) normalisation divided in fp32 before the cast;
+    then K5 assembles the 2E terms in image-sorted order (the stable argsort
+    of [ei; ej], the order of JAX's image-chunked layout without its per-chunk
+    padding). Consecutive terms then read the same proj row, and K4's CSR of
+    terms by image walks contiguous ranges (its order is the identity).
+    packed_perm maps each slot to its [i-terms; j-terms] term, for the pose
+    gather in the loss."""
     E, A, _ = data.pred_i.shape
     norm = float(E * A)
-    pred = torch.cat([data.pred_i, data.pred_j]).to(dtype)
-    pred = pred.transpose(1, 2).contiguous()
-    w = (torch.cat([data.weight_i, data.weight_j]) / norm).to(dtype).contiguous()
-    idx = torch.cat([data.ei, data.ej]).int()
-    order, offsets = term_csr(idx, cfg.n_imgs)
     dev = data.pred_i.device
+
+    def natural(p, w):
+        pp = torch.empty((E, 3, A), dtype=dtype, device=dev)
+        pp.copy_(p.transpose(1, 2))
+        return pp, (w / norm).to(dtype).contiguous()
+
+    pred_i, w_i = natural(data.pred_i, data.weight_i)
+    pred_j, w_j = natural(data.pred_j, data.weight_j)
+    idx = np.concatenate([data.ei.cpu().numpy(), data.ej.cpu().numpy()])
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    to_dev = lambda a: torch.from_numpy(a).to(dev)
+    pred, w = permute_packed(pred_i, pred_j, w_i, w_j, to_dev(perm),
+                             to_dev(np.ones(2 * E, np.int32)))
+    order, offsets = term_csr(idx[perm], cfg.n_imgs)
     return dataclasses.replace(data, packed_pred=pred, packed_w=w,
-                               packed_idx=idx.contiguous(),
+                               packed_idx=to_dev(idx[perm].astype(np.int32)),
+                               packed_perm=to_dev(perm.astype(np.int64)),
                                packed_order=order.to(dev),
                                packed_offsets=offsets.to(dev))
 
@@ -289,7 +306,9 @@ def _pairwise_pts_loss_fused(params, data: SceneData, cfg: SceneConfig):
     (backward) on the packed observations; fp32 arithmetic throughout."""
     pw = get_pw_poses(params, cfg)
     pw34 = fold_pose_adaptors(pw, get_adaptors(params, cfg))
-    pw34 = torch.cat([pw34, pw34]).float()
+    # pack order (JAX jnp.take(pw34, packed_perm), scene.py:562); autograd
+    # scatters the gradient back to the two natural-order copies
+    pw34 = torch.cat([pw34, pw34]).float().index_select(0, data.packed_perm)
     proj = depth_to_pts3d_packed(params, data, cfg)
     return edge_loss(proj, pw34, data.packed_pred, data.packed_w,
                      data.packed_idx, data.packed_order, data.packed_offsets)

@@ -32,6 +32,7 @@ from torch import nn
 from align3r_tpu_torch.models.config import Align3RConfig
 from align3r_tpu_torch.models import nn as L
 from align3r_tpu_torch.models import blocks as B
+from align3r_tpu_torch.models.nn import device_or_raise
 from align3r_tpu_torch.models.dpt_head import (DPTHead, apply_dpt_head,
                                                dpt_head_params, prepare_dpt_head)
 from align3r_tpu_torch.models.rope import make_grid_positions
@@ -150,8 +151,14 @@ class Align3R(nn.Module):
         return hook_list(feat1, 0), hook_list(feat2, 1)
 
     @torch.no_grad()
-    def prepare(self, dtype=torch.bfloat16, head_dtype=torch.bfloat16):
-        """The inference weights (see module docstring); built once."""
+    def prepare(self, dtype=torch.bfloat16, head_dtype=torch.bfloat16, device="cuda"):
+        """The inference weights (see module docstring), built once, on
+        `device`: the card unless the caller passes device="cpu". Without
+        CUDA, "cuda" raises."""
+        dev = device_or_raise(device)
+        return _tree_to(self._prepare(dtype, head_dtype), dev)
+
+    def _prepare(self, dtype, head_dtype):
         def dense(lin):
             return lin.weight.detach().t().to(dtype), lin.bias.detach().float()
 
@@ -176,6 +183,21 @@ class Align3R(nn.Module):
             head1=prepare_dpt_head(self.downstream_head1, head_dtype),
             head2=prepare_dpt_head(self.downstream_head2, head_dtype),
         )
+
+
+def _tree_to(tree, dev):
+    """Move every tensor of a prepared-weights tree (PreparedAlign3R, dicts,
+    lists, tuples) to `dev`; tensors already there are kept, not copied."""
+    if torch.is_tensor(tree):
+        return tree.to(dev)
+    if isinstance(tree, PreparedAlign3R):
+        return dataclasses.replace(tree, **{f.name: _tree_to(getattr(tree, f.name), dev)
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree
 
 
 @dataclasses.dataclass

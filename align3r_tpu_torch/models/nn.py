@@ -12,6 +12,17 @@ import torch
 import torch.nn.functional as F
 
 
+def device_or_raise(device) -> torch.device:
+    """The device a serving entry point puts its weights on: the card unless
+    the caller asks for the CPU. "cuda" without CUDA raises; it never falls
+    back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} but CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
 def dense(x, kernel, bias=None):
     """y = x @ kernel (+ bias), kernel (in, out) cast to x's dtype."""
     y = x @ kernel.to(x.dtype)

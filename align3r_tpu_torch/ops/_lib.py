@@ -38,6 +38,7 @@ _SIGNATURES = {
     "a3r_edge_tiles": [_I],
     "a3r_edge_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "a3r_edge_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "a3r_permute_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
 }
 
 _loaded: dict = {}

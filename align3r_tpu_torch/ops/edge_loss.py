@@ -1,5 +1,6 @@
 """Fused edge-residual loss of the global-alignment solve: kernels K3
-(forward) and K4 (backward), each beside its plain PyTorch version (port of
+(forward) and K4 (backward), and K5, the row permute that builds their
+packed observations, each beside its plain PyTorch version (port of
 align3r_tpu/ops/edge_loss.py).
 
     loss = sum_e sum_a w[e, a] * safe_norm(proj[idx[e], :, a] - M[e] @ [pred[e, :, a]; 1])
@@ -10,7 +11,8 @@ K3 ``edge_loss_fwd`` replaces the Pallas ``_fwd_kernel`` /
 ``_bwd_kernel_chunked`` / ``_bwd_body`` (:207-268, ``_bwd_call`` :327-357).
 ``EdgeLoss`` is the ``torch.autograd.Function`` that ties them together:
 gradients flow to ``proj`` and the folded (e2, 3, 4) pose matrices; the
-frozen observations get none.
+frozen observations get none. K5 ``permute_packed`` replaces the Pallas
+``permute_packed`` (:360-439, inner ``kern`` :417).
 
 Layout (csrc/edge_loss.cu says why): observations are packed once per solve
 channel-major, pred (e2, 3, A) and w (e2, A), bf16 or fp32; proj (n, 3, A)
@@ -142,6 +144,58 @@ def edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets):
 
 
 edge_loss_bwd.launches = 0
+
+
+def permute_packed_plain(pred_i_p, pred_j_p, w_i_p, w_j_p, perm, valid):
+    """Plain PyTorch version of K5: slot s takes term perm[s] of the flat
+    [i-terms; j-terms] list (rows clamped to [0, E), as the TPU kernel's
+    index maps clamp them), its weight multiplied by valid[s] in the
+    storage type."""
+    E = pred_i_p.shape[0]
+    t = perm.long()
+    from_i = t < E
+    ri, rj = t.clamp(0, E - 1), (t - E).clamp(0, E - 1)
+    pred = torch.where(from_i[:, None, None], pred_i_p.index_select(0, ri),
+                       pred_j_p.index_select(0, rj))
+    w = torch.where(from_i[:, None], w_i_p.index_select(0, ri),
+                    w_j_p.index_select(0, rj))
+    return pred, w * valid.to(w.dtype)[:, None]
+
+
+def permute_packed(pred_i_p, pred_j_p, w_i_p, w_j_p, perm, valid):
+    """K5: assemble the packed observations ((e2, 3, A), (e2, A)) from the
+    naturally ordered per-edge packs pred_*_p (E, 3, A), w_*_p (E, A) by
+    perm / valid (e2,) int32 (see csrc/permute_packed.cu)."""
+    if not pred_i_p.is_cuda:
+        return permute_packed_plain(pred_i_p, pred_j_p, w_i_p, w_j_p, perm, valid)
+    srcs = (pred_i_p, pred_j_p, w_i_p, w_j_p)
+    dt = pred_i_p.dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(t.dtype != dt for t in srcs):
+        raise ValueError(f"K5 permutes bf16 or fp32 packs of one type; got "
+                         f"{[t.dtype for t in srcs]}")
+    E, three, A = pred_i_p.shape
+    e2 = perm.shape[0]
+    if (three != 3 or pred_j_p.shape != (E, 3, A) or w_i_p.shape != (E, A)
+            or w_j_p.shape != (E, A) or valid.shape != (e2,)
+            or perm.dtype != torch.int32 or valid.dtype != torch.int32
+            or not all(t.is_cuda and t.is_contiguous() for t in srcs + (perm, valid))):
+        raise ValueError("K5: needs contiguous CUDA (E, 3, A) / (E, A) packs and "
+                         "int32 perm / valid of one length")
+    pred = torch.empty((e2, 3, A), dtype=dt, device=pred_i_p.device)
+    w = torch.empty((e2, A), dtype=dt, device=pred_i_p.device)
+    isz = pred_i_p.element_size()
+    vec = int((A * isz) % 16 == 0
+              and all(t.data_ptr() % 16 == 0 for t in srcs + (pred, w)))
+    lib = _lib.library()
+    _lib.check(lib.a3r_permute_packed(*(t.data_ptr() for t in srcs), perm.data_ptr(),
+                                      valid.data_ptr(), pred.data_ptr(), w.data_ptr(),
+                                      E, e2, A, int(dt == torch.bfloat16), vec,
+                                      _lib.stream()), "K5 permute_packed")
+    permute_packed.launches += 1
+    return pred, w
+
+
+permute_packed.launches = 0
 
 
 class EdgeLoss(torch.autograd.Function):

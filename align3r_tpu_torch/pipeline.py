@@ -2,13 +2,16 @@
 align3r_tpu/pipeline.py:188-286).
 
 frames + prior pointclouds -> pair graph -> engine (encoder, dual-stream
-decoder, DPT heads; kernels K1, K2) -> MST init (host) -> Adam alignment
-(kernels K3, K4) -> SceneResult with poses, focals, intrinsics, depths and
-their savers.
+decoder, DPT heads; kernels K1, K2) -> optional RAFT flows in both
+directions of every edge and self-supervised motion masks -> MST init
+(host) -> Adam alignment (kernels K3, K4 on observations packed by K5; the
+flow variant adds the ego-flow term and the depth regulariser) ->
+SceneResult with poses, focals, intrinsics, depths, confidences, dynamic
+masks and their savers.
 
-Not in this slice: RAFT flows, self-supervised motion masks and SAM2 mask
-refinement (they come with the flow-path port) and the hierarchical variant;
-asking for them raises NotImplementedError.
+Not in this slice: SAM2 refinement of the motion masks (ROADMAP queue 1,
+item 4: asking for it raises NotImplementedError) and the hierarchical
+variant.
 """
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ from align3r_tpu_torch.alignment.scene import (
     SceneConfig, SceneData, build_scene, default_masks, depth_to_pts3d,
     get_depthmaps_raw, get_focals, get_im_poses, get_intrinsics,
     get_principal_points, global_alignment_loop, pairwise_pts_loss)
+from align3r_tpu_torch.alignment.pair_viewer import motion_masks_from_pairs
 from align3r_tpu_torch.inference.engine import inference
 from align3r_tpu_torch.models.align3r import PreparedAlign3R
+from align3r_tpu_torch.models.raft import raft_forward
+from align3r_tpu_torch.models.raft1 import raft1_forward
 
 
 def _np(t):
@@ -107,6 +113,25 @@ class SceneResult:
                            os.path.join(out_dir, f"frame_{i + start:04d}.png"))
         return depths
 
+    def save_conf_maps(self, out_dir, start: int = 0):
+        """conf_{i}.npy per frame."""
+        confs = self.get_conf()
+        os.makedirs(out_dir, exist_ok=True)
+        for i, c in enumerate(confs):
+            np.save(os.path.join(out_dir, f"conf_{i + start}.npy"), c)
+        return confs
+
+    def save_dynamic_masks(self, out_dir, start: int = 0):
+        """dynamic_mask_{i}.png per frame, 255 = dynamic (all static when the
+        solve had no masks)."""
+        masks = (self.dynamic_masks if self.dynamic_masks is not None
+                 else np.zeros((self.cfg.n_imgs,) + tuple(self.cfg.imshape), bool))
+        os.makedirs(out_dir, exist_ok=True)
+        for i, m in enumerate(masks):
+            _save_gray_png((np.asarray(m) > 0).astype(np.uint8) * 255,
+                           os.path.join(out_dir, f"dynamic_mask_{i + start}.png"))
+        return masks
+
 
 def _save_gray_png(img: np.ndarray, path: str):
     """Minimal 8-bit grayscale PNG writer (zlib only, no imaging library)."""
@@ -127,6 +152,28 @@ def _save_gray_png(img: np.ndarray, path: str):
 def _sync(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def compute_raft_flows(raft, imgs_01, edges, chunk: int = 12, iters: int = 20):
+    """Bidirectional RAFT flow per edge, on the RAFT module's device, in fp32
+    (the JAX pipeline's "auto" precision). imgs_01 (n, H, W, 3) in [0, 1].
+    Returns flow_ij, flow_ji (E, H, W, 2). Each step runs `chunk` edges in
+    both directions as one batch; the ragged tail runs at its own size.
+    The module's class says which RAFT it is (JAX passes raft_kind with its
+    parameter tree)."""
+    fwd = raft1_forward if raft.kind == "raft1" else raft_forward
+    dev = next(raft.parameters()).device
+    imgs255 = torch.as_tensor(np.asarray(imgs_01), dtype=torch.float32, device=dev) * 255.0
+    ei = torch.tensor([e[0] for e in edges], device=dev)
+    ej = torch.tensor([e[1] for e in edges], device=dev)
+    f_ij, f_ji = [], []
+    for s in range(0, len(edges), chunk):
+        a, b = imgs255[ei[s:s + chunk]], imgs255[ej[s:s + chunk]]
+        fij, fji = torch.chunk(fwd(raft, torch.cat([a, b]), torch.cat([b, a]), iters=iters),
+                               2)
+        f_ij.append(fij)
+        f_ji.append(fji)
+    return torch.cat(f_ij), torch.cat(f_ji)
 
 
 def reconstruct_scene(
@@ -154,13 +201,15 @@ def reconstruct_scene(
 ) -> SceneResult:
     """Full per-video solve. imgs (n, H, W, 3) in [-1, 1]; priors
     (n, H, W, 3) normalised prior pointclouds. Runs on the model's device.
-    `use_self_mask` only acts with RAFT flows, as in the JAX pipeline.
-    SceneResult.timings holds the host seconds of each phase (each ends in a
-    device synchronise)."""
-    if raft_params is not None or sam2_mask_refine:
+    raft_params is a RAFT module (models/raft.py RAFT2 or models/raft1.py
+    RAFT1) on that device: with it and flow_loss_weight > 0 the flow variant precomputes
+    RAFT flows for every edge (and, with `use_self_mask`, the motion masks)
+    and adds the flow term, as in the JAX pipeline. SceneResult.timings holds
+    the host seconds of each phase (each ends in a device synchronise)."""
+    if sam2_mask_refine:
         raise NotImplementedError(
-            "RAFT flows, self-supervised motion masks and SAM2 refinement "
-            "come with the flow-path port; this slice solves without them")
+            "SAM2 refinement of the motion masks is not ported yet "
+            "(ROADMAP queue 1, item 4)")
     dev = model.device
     timings = {}
     n = imgs.shape[0]
@@ -180,6 +229,20 @@ def reconstruct_scene(
         scene_kw.setdefault("num_total_iter", niter)
     cfg, data, params = build_scene(output, cfg_kw=scene_kw,
                                     mono_depths=mono_depths, seed=seed)
+
+    # flow precompute + motion masks
+    if variant == "flow" and cfg.flow_loss_weight > 0 and raft_params is not None:
+        t0 = time.perf_counter()
+        flow_ij, flow_ji = compute_raft_flows(raft_params, np.asarray(imgs) * 0.5 + 0.5,
+                                              pairs)
+        _sync(flow_ij.device)
+        timings["raft_s"] = time.perf_counter() - t0
+        if use_self_mask and dynamic_masks is None:
+            t0 = time.perf_counter()
+            dynamic_masks = motion_masks_from_pairs(output, flow_ij, flow_ji,
+                                                    min_conf_thr=cfg.min_conf_thr)
+            timings["masks_s"] = time.perf_counter() - t0
+        data = dataclasses.replace(data, flow_ij=flow_ij.to(dev), flow_ji=flow_ji.to(dev))
     if dynamic_masks is not None:
         data = dataclasses.replace(
             data, dynamic_masks=torch.as_tensor(np.asarray(dynamic_masks),

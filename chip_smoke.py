@@ -11,9 +11,9 @@ final result line:
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events).
-  4. parity   - a small model and a small solve run through the kernels on
-                the card and through the plain versions on the CPU, from the
-                same seeded weights and inputs; they must agree.
+  4. parity   - a small model, a small solve and the flow term (gate off) run
+                on the card and on the CPU, from the same seeded weights and
+                inputs; they must agree.
   5. main     - the port's entry point, align3r_tpu_torch.pipeline.
                 reconstruct_scene, at ViT-L 512 width (VIT_L_512, seeded random
                 weights) on 24 synthetic 512x288 frames: swinstride-5 graph
@@ -21,7 +21,17 @@ final result line:
                 kernels' launch counters are zeroed right before the call and
                 every kernel must have launched; outputs must be finite and of
                 the expected shapes. A second, warm run gives pairs/s and it/s.
-  6. train    - the fine-tuning path: K6 against its plain version at the
+  6. flow     - the same entry point on the demo's flow path: SEA-RAFT
+                spring-M at full width (seeded random weights) computes flows
+                in both directions of every edge, the self-supervised motion
+                masks come from PairViewer solves (numpy PnP on the host), and
+                the solve adds the flow term (the demo's scene_kw, weight
+                0.01). 12 of the 24 frames (70 pairs): the host PnP of the
+                masks costs seconds per pair, and 24 frames would take most of
+                the time limit. The counters are zeroed right before the call;
+                K5 must launch twice (the bf16 pack and the fp32 repack), K3
+                and K4 300 times; flows, masks (n, H, W) and outputs finite.
+  7. train    - the fine-tuning path: K6 against its plain version at the
                 training shapes (and its time beside torch's SDPA), K6's and
                 the differentiable K1/K2 sites' gradients against autograd of
                 their twins, then align3r_tpu_torch.training.train.train at
@@ -50,6 +60,7 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES, H, W = 24, 288, 512
+FLOW_FRAMES = 12
 BATCH = 32
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
@@ -171,7 +182,9 @@ def check_sites(dev, gen):
 def check_edge(dev, gen):
     """K3/K4 against their plain versions at 24 frames (e2 = 380 terms,
     A = 147,456), bf16 and fp32 storage. Tolerance: relative 1e-4 of the
-    largest value (fp32 arithmetic on both sides, sums in another order)."""
+    largest value (fp32 arithmetic on both sides, sums in another order).
+    Timed with the terms sorted by image, as the pack lays them out (ms), and
+    in the random order of the check (ms_unsorted)."""
     import torch
     from align3r_tpu_torch.ops import edge_loss as el
     n, e2, A = N_FRAMES, 380, H * W
@@ -199,9 +212,14 @@ def check_edge(dev, gen):
         isz = 2 if dt == torch.bfloat16 else 4
         fwd_bytes = n * 3 * A * 4 + e2 * 48 + e2 * 3 * A * isz + e2 * A * isz + e2 * 4
         b_ms, b_by = bound(fwd_bytes + 4, 30 * e2 * A, PEAK_FP32)
+        idx_s = torch.sort(idx).values
+        order_s, offsets_s = (t.to(dev) for t in el.term_csr(idx_s, n))
+        kf_s = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx_s)
+        kb_s = lambda: el.edge_loss_bwd(g, proj, pw34, pred, w, idx_s, order_s, offsets_s)
         rows.append(dict(kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
                          max_abs_err=ef[0], max_rel_err=ef[1], tol=1e-4 * ef[2],
-                         ok=ef[0] <= 1e-4 * ef[2], ms=cuda_time(kf, 20),
+                         ok=ef[0] <= 1e-4 * ef[2], ms=cuda_time(kf_s, 20),
+                         ms_unsorted=cuda_time(kf, 20),
                          plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by))
         e1, e2m = max_err(dpk, dpp), max_err(dmk, dmp)
         # the forward's reads, plus dproj and dM written; about twice its work
@@ -212,8 +230,52 @@ def check_edge(dev, gen):
                          max_rel_err=max(e1[1], e2m[1]),
                          tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
                          ok=e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2],
-                         ms=cuda_time(kb, 20), plain_ms=cuda_time(pb, 3)))
+                         ms=cuda_time(kb_s, 20), ms_unsorted=cuda_time(kb, 20),
+                         plain_ms=cuda_time(pb, 3)))
         del proj, pred, w, dpk, dpp
+    return rows
+
+
+def check_k5(dev, gen):
+    """K5 against its plain version at 24 frames (E = 190 edges, e2 = 380
+    slots, A = 147,456), bf16 and fp32: the image-sorted perm of the
+    swinstride-5 graph with every 19th slot made a dummy (perm 0, valid 0).
+    Tolerance: bit-identical. Beside it, torch.index_select of the same rows
+    of the stacked [i; j] packs (pred and w), the library call the port
+    never makes."""
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.ops import edge_loss as el
+    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    E, A = len(pairs), H * W
+    idx = np.array([p[0] for p in pairs] + [p[1] for p in pairs])
+    perm = np.argsort(idx, kind="stable").astype(np.int32)
+    valid = np.ones(2 * E, np.int32)
+    valid[::19], perm[::19] = 0, 0
+    perm_d, valid_d = (torch.from_numpy(a).to(dev) for a in (perm, valid))
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        pi, pj = (torch.randn(E, 3, A, generator=gen, device=dev).to(dt) for _ in range(2))
+        wi, wj = (torch.rand(E, A, generator=gen, device=dev).to(dt) for _ in range(2))
+        kern = lambda: el.permute_packed(pi, pj, wi, wj, perm_d, valid_d)
+        plain = lambda: el.permute_packed_plain(pi, pj, wi, wj, perm_d, valid_d)
+        (pk, wk), (pp, wp) = kern(), plain()
+        torch.cuda.synchronize()
+        ok = torch.equal(pk, pp) and torch.equal(wk, wp)
+        err = max((pk.float() - pp.float()).abs().max().item(),
+                  (wk.float() - wp.float()).abs().max().item())
+        p_cat, w_cat, perm_l = torch.cat([pi, pj]), torch.cat([wi, wj]), perm_d.long()
+        lib = lambda: (torch.index_select(p_cat, 0, perm_l), torch.index_select(w_cat, 0, perm_l))
+        isz = pk.element_size()
+        # each slot's source rows read once and its rows written once
+        b_ms, b_by = bound(2 * 2 * E * 4 * A * isz + 2 * 2 * E * 4, 2 * E * A, PEAK_FP32)
+        rows.append(dict(kernel="K5", shape=f"{'bf16' if dt == torch.bfloat16 else 'fp32'} "
+                         f"E={E} e2={2 * E} A={A}, {int((valid == 0).sum())} dummy slots",
+                         max_abs_err=err, max_rel_err=0.0 if ok else None, tol=0.0, ok=ok,
+                         ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+                         library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by))
+        del pi, pj, wi, wj, pk, wk, pp, wp, p_cat, w_cat
     return rows
 
 
@@ -243,8 +305,8 @@ def parity_small(dev):
     pri = torch.from_numpy(rng.uniform(0, 1, (4, 64, 96, 3)).astype(np.float32))
     v1 = {"img": imgs[:2], "pred_depth": pri[:2]}
     v2 = {"img": imgs[2:], "pred_depth": pri[2:]}
-    ref = apply_align3r(model.prepare(), v1, v2)
-    gpu = apply_align3r(model.to(dev).prepare(),
+    ref = apply_align3r(model.prepare(device="cpu"), v1, v2)
+    gpu = apply_align3r(model.prepare(),        # the card, by default
                         {k: t.to(dev) for k, t in v1.items()},
                         {k: t.to(dev) for k, t in v2.items()})
     out = {}
@@ -279,6 +341,57 @@ def parity_small(dev):
     out["solve.losses"] = rel
     if not rel <= 1e-3:
         raise AssertionError(f"solve parity: loss curve rel err {rel:.3g} > 1e-3")
+    out.update(parity_flow_term(dev))
+    return out
+
+
+def parity_flow_term(dev):
+    """flow_forward with the flow term (threshold gate off, past its start),
+    dynamic masks and the depth regulariser, on the card and on the CPU from
+    the same seeded scene (4 frames at 32x48, points in front of the
+    cameras), flows and masks: the loss and every gradient to 1e-4 of their
+    largest value (fp32 on both sides, TF32 off, sums in another order).
+    Random RAFT weights may keep the gate shut through the whole flow-phase
+    solve; this holds the term's code on the card regardless."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.alignment import scene as sc
+    from align3r_tpu_torch.alignment.flow import flow_forward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r = np.random.default_rng(6)
+    n, h, w = 4, 32, 48
+    pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+    E = len(pairs)
+    scene = {"view1": {"idx": np.array([p[0] for p in pairs])},
+             "view2": {"idx": np.array([p[1] for p in pairs])},
+             "pred1": {"pts3d": r.normal(0, 1, (E, h, w, 3)) + [0, 0, 4],
+                       "conf": 1 + r.uniform(size=(E, h, w))},
+             "pred2": {"pts3d_in_other_view": r.normal(0, 1, (E, h, w, 3)) + [0, 0, 4],
+                       "conf": 1 + r.uniform(size=(E, h, w))}}
+    extra = {"flow_ij": r.normal(0, 2, (E, h, w, 2)), "flow_ji": r.normal(0, 2, (E, h, w, 2)),
+             "dynamic_masks": r.uniform(size=(n, h, w)) > 0.7,
+             "init_depth": r.uniform(1, 2, (n, h * w))}
+    kw = dict(flow_loss_weight=0.01, flow_loss_thre=0.0, flow_loss_start_epoch=0.0,
+              depth_regularize_weight=0.01, shared_focal=True)
+    out, got = {}, []
+    for d in ("cpu", dev):
+        o = {k: {kk: (torch.as_tensor(v, dtype=torch.float32, device=d) if kk != "idx" else v)
+                 for kk, v in val.items()} for k, val in scene.items()}
+        cfg, data, params = sc.build_scene(o, kw)
+        data = dataclasses.replace(data, **{k: torch.as_tensor(v, dtype=torch.float32, device=d)
+                                            for k, v in extra.items()})
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        loss = flow_forward(leaves, data, cfg, step=10)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        got.append([("loss", loss.detach().cpu())]
+                   + [(k, g.cpu()) for k, g in zip(leaves, grads) if g is not None])
+    for (name, a), (_, b) in zip(got[1], got[0]):
+        rel = max_err(a, b)[1]
+        out[f"flow_term.{name}"] = rel
+        if not rel <= 1e-4:
+            raise AssertionError(f"flow term parity: {name} rel err {rel:.3g} > 1e-4")
     return out
 
 
@@ -337,7 +450,8 @@ def main_path(dev):
     kw = dict(scene_graph="swinstride-5-noncyclic", batch_size=BATCH,
               variant="flow", niter=300, schedule="linear", lr=0.01,
               scene_kw=scene_kw)
-    counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd)
+    counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
+                el.permute_packed)
     for c in counters:
         c.launches = 0
     res = reconstruct_scene(imgs, priors, pm, **kw)
@@ -372,10 +486,90 @@ def main_path(dev):
              "warm_timings_s": warm,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"main: warm run {json.dumps(rates)}", flush=True)
-    return launches, rates
+    return launches, rates, pm, imgs, priors
 
 
 # ----------------------------------------------------------------- phase 6
+
+def flow_path(dev, pm, imgs, priors):
+    """The demo's flow path (see the module docstring) on FLOW_FRAMES frames."""
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.alignment.flow import flow_term
+    from align3r_tpu_torch.models.raft import RAFT2, SPRING_M, init_raft_
+    from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.pipeline import compute_raft_flows, reconstruct_scene
+
+    n = FLOW_FRAMES
+    imgs, priors = imgs[:n], priors[:n]
+    raft = init_raft_(RAFT2(SPRING_M), seed=0).to(dev)
+    # cuDNN picks its convolution algorithms on the first call at a shape:
+    # one untimed chunk at the path's batch (12 edges, both directions)
+    compute_raft_flows(raft, imgs * 0.5 + 0.5, [(0, 1)] * 12, iters=1)
+    torch.cuda.synchronize()
+    scene_kw = dict(shared_focal=True, temporal_smoothing_weight=0.01,
+                    translation_weight=1.0, flow_loss_weight=0.01,
+                    flow_loss_start_epoch=0.1, flow_loss_thre=25, min_conf_thr=1.1)
+    kw = dict(scene_graph="swinstride-5-noncyclic", batch_size=BATCH, variant="flow",
+              raft_params=raft, use_self_mask=True, niter=300, schedule="linear",
+              lr=0.01, scene_kw=scene_kw)
+    counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
+                el.permute_packed)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = reconstruct_scene(imgs, priors, pm, **kw)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    t = res.timings
+    E = res.cfg.n_edges
+    print(f"flow: {n} frames, {E} pairs, timings {json.dumps(t)} launches "
+          f"{json.dumps(launches)}", flush=True)
+    masks = res.dynamic_masks
+    checks = {
+        "k5_2_per_solve": launches["permute_packed"] == 2,
+        "k3_k4_300": launches["edge_loss_fwd"] == 300 and launches["edge_loss_bwd"] == 300,
+        "k1_k2_launched": launches["attention_site"] > 0 and launches["mlp_site"] > 0,
+        "timings": {"raft_s", "masks_s", "solve_s"} <= set(t),
+        "flows": tuple(res.data.flow_ij.shape) == (E, H, W, 2)
+        and bool(torch.isfinite(res.data.flow_ij).all() and torch.isfinite(res.data.flow_ji).all()),
+        "masks": masks is not None and masks.shape == (n, H, W) and masks.dtype == bool,
+        "losses": res.losses.shape == (300,) and bool(np.isfinite(res.losses).all()),
+        "finite": all(np.isfinite(a).all() for a in (res.get_im_poses(), res.get_focals(),
+                                                      res.get_depthmaps())),
+    }
+    print(f"flow: checks {json.dumps(checks)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"flow path checks failed: {checks}")
+    # the flow term's cost, forward and backward at the final parameters,
+    # and whether its gate was open there
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in res.params.items()}
+
+    def term():
+        torch.autograd.grad(flow_term(params, res.data, res.cfg), list(params.values()),
+                            allow_unused=True)
+
+    with torch.no_grad():
+        fl = flow_term(res.params, res.data, res.cfg).item()
+    term_ms = cuda_time(term, 5, warmup=1)
+    active = 300 - int(np.ceil(res.cfg.flow_loss_start_epoch * 300))
+    stats = {"frames": n, "pairs": E, "raft_s": t["raft_s"],
+             "raft_ms_per_directed_pair": t["raft_s"] * 1e3 / (2 * E),
+             "masks_s": t["masks_s"], "masks_s_per_symmetric_pair": t["masks_s"] / (E / 2),
+             "inference_s": t["inference_s"], "init_s": t["init_s"], "solve_s": t["solve_s"],
+             "alignment_it_per_s": 300 / t["solve_s"],
+             "dynamic_share": float(masks.mean()),
+             "flow_term_final": fl, "flow_gate_open_at_end": fl <= res.cfg.flow_loss_thre,
+             "flow_term_fwd_bwd_ms": term_ms,
+             "flow_term_share_of_solve_est": active * term_ms / (t["solve_s"] * 1e3),
+             "loss_first": float(res.losses[0]), "loss_last": float(res.losses[-1]),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"flow: stats {json.dumps(stats)}", flush=True)
+    return launches, stats
+
+
+# ----------------------------------------------------------------- phase 7
 
 def check_k6(dev, gen):
     """K6 against its plain version at the training path's shapes (VIT_L_512
@@ -646,7 +840,7 @@ def main() -> int:
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)
-        rows = check_sites(dev, gen) + check_edge(dev, gen)
+        rows = check_sites(dev, gen) + check_edge(dev, gen) + check_k5(dev, gen)
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
         bad = [r for r in rows if not r["ok"]]
@@ -659,7 +853,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase = "main"
-        launches, rates = main_path(dev)
+        launches, rates, pm, imgs, priors = main_path(dev)
+        torch.cuda.empty_cache()
+
+        phase = "flow"
+        flow_launches, flow_stats = flow_path(dev, pm, imgs, priors)
+        del pm
         torch.cuda.empty_cache()
 
         phase = "train"
@@ -691,13 +890,14 @@ def main() -> int:
         "K2": ("mlp_site", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:242"),
         "K3": ("edge_loss_fwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:172"),
         "K4": ("edge_loss_bwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:207"),
+        "K5": ("permute_packed", src + "permute_packed.cu", "align3r_tpu/ops/edge_loss.py:417"),
         "K6": ("small_attention", src + "small_attention.cu",
                "align3r_tpu/ops/small_attention.py:47"),
     }
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
-        path = train_launches if k == "K6" else launches
+        path = {"K5": flow_launches, "K6": train_launches}.get(k, launches)
         kernels.append({"name": f"{k} {fn}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": path[fn],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -706,11 +906,11 @@ def main() -> int:
                         "library_ms": mine[0].get("library_ms"),
                         "shape": mine[0]["shape"],
                         "checks": [{k2: r.get(k2) for k2 in (
-                            "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                            "bound_by", "max_abs_err")} for r in mine]})
+                            "shape", "ms", "ms_unsorted", "plain_ms", "library_ms",
+                            "bound_ms", "bound_by", "max_abs_err")} for r in mine]})
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "main_path": rates, "train_path": train_stats}),
-          flush=True)
+    print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
+                      "train_path": train_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -123,6 +123,76 @@ def test_edge_loss_autograd_on_the_card(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("A", [5000, 1001])
+def test_permute_packed_kernel(dev, dtype, A):
+    """K5 bit-identical to its plain version: a perm over both sources with
+    dummy slots (valid 0, perm 0), an out-of-range row (clamped), a weight of
+    -inf whose dummy copy is NaN in both, and rows of A = 1001 that are not
+    16-byte multiples (the element path)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    E = 7
+    pi, pj = (torch.randn(E, 3, A, generator=g, device=dev).to(dtype) for _ in range(2))
+    wi, wj = (torch.randn(E, A, generator=g, device=dev).to(dtype) for _ in range(2))
+    wi[0, 3] = -float("inf")
+    perm = torch.tensor([3, 9, 0, 13, 0, 7, 1, 20, 0, 6, 12], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 0, 1, 0, 1, 1, 1, 1, 1, 0], dtype=torch.int32, device=dev)
+    before = el.permute_packed.launches
+    pred, w = el.permute_packed(pi, pj, wi, wj, perm, valid)
+    assert el.permute_packed.launches == before + 1
+    rp, rw = el.permute_packed_plain(pi, pj, wi, wj, perm, valid)
+    torch.cuda.synchronize()
+    assert pred.dtype == dtype and w.shape == (11, A)
+    assert torch.equal(pred, rp)
+    assert torch.equal(torch.isnan(w), torch.isnan(rw)) and torch.isnan(w[2, 3])
+    assert torch.equal(w.nan_to_num(), rw.nan_to_num())
+    assert torch.equal(torch.signbit(w.nan_to_num()), torch.signbit(rw.nan_to_num()))
+
+
+def test_flow_term_and_image_sorted_solve_on_the_card(dev):
+    """flow_forward with the flow term (gate off), dynamic masks and the depth
+    regulariser on the card against the CPU: the loss and every gradient to
+    1e-4 of their largest value (fp32, TF32 off, other sum order); then a
+    20-iteration mixed solve on the card packs through K5 twice."""
+    import dataclasses
+    from align3r_tpu_torch.alignment import scene as sc
+    from align3r_tpu_torch.alignment.flow import flow_forward
+    r = np.random.default_rng(9)
+    n, h, w = 4, 24, 40
+    pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+    E = len(pairs)
+    out = {"view1": {"idx": np.array([p[0] for p in pairs])},
+           "view2": {"idx": np.array([p[1] for p in pairs])},
+           "pred1": {"pts3d": r.normal(0, 1, (E, h, w, 3)) + [0, 0, 4],
+                     "conf": 1 + r.uniform(size=(E, h, w))},
+           "pred2": {"pts3d_in_other_view": r.normal(0, 1, (E, h, w, 3)) + [0, 0, 4],
+                     "conf": 1 + r.uniform(size=(E, h, w))}}
+    extra = {"flow_ij": r.normal(0, 2, (E, h, w, 2)), "flow_ji": r.normal(0, 2, (E, h, w, 2)),
+             "dynamic_masks": r.uniform(size=(n, h, w)) > 0.7,
+             "init_depth": r.uniform(1, 2, (n, h * w))}
+    kw = dict(flow_loss_weight=0.01, flow_loss_thre=0.0, flow_loss_start_epoch=0.0,
+              depth_regularize_weight=0.01, shared_focal=True)
+    got = []
+    for d in ("cpu", dev):
+        o = {k: ({kk: torch.as_tensor(v, dtype=torch.float32, device=d) if kk != "idx" else v
+                  for kk, v in val.items()}) for k, val in out.items()}
+        cfg, data, params = sc.build_scene(o, kw)
+        data = dataclasses.replace(
+            data, **{k: torch.as_tensor(v, dtype=torch.float32, device=d)
+                     for k, v in extra.items()})
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        loss = flow_forward(leaves, data, cfg, step=5)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        got.append([loss.detach().cpu()] + [g.cpu() for g in grads if g is not None])
+    for a, b in zip(got[1], got[0]):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    before = el.permute_packed.launches
+    _, losses = sc.global_alignment_loop(params, sc.default_masks(cfg, params), data, cfg,
+                                         niter=20, loss_fn=flow_forward)
+    assert el.permute_packed.launches == before + 2
+    assert torch.isfinite(losses).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 3, 80, 64, 80), (1, 2, 48, 40, 100),
                                    (1, 1, 64, 128, 64), (2, 2, 16, 8, 33)])
 def test_small_attention_kernel(dev, dtype, shape):

@@ -126,18 +126,114 @@ def _scene(seed=0, n=4, H=8, W=12):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_pack_scene_matches_streamed_pack(dtype):
+    """The port's image-sorted pack holds, slot by slot, the streamed pack's
+    term perm[slot] (the JAX natural order at n=4)."""
     jcfg, jdata, _, tcfg, tdata, _ = _scene(1)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
                 else (jnp.bfloat16, torch.bfloat16))
     jp = js.pack_scene(jdata, jcfg, dtype=jdt, impl="streamed")
     tp = ts.pack_scene(tdata, tcfg, dtype=tdt)
     e2, A = 2 * jcfg.n_edges, jcfg.imshape[0] * jcfg.imshape[1]
+    perm = tp.packed_perm.numpy()
+    idx = np.asarray(jp.packed_idx)[:e2]
+    np.testing.assert_array_equal(perm, np.argsort(idx, kind="stable"))
     jpred = np.asarray(jp.packed_pred.astype(jnp.float32)).reshape(-1, 3, jp.packed_pred.shape[2] * 128)
-    np.testing.assert_array_equal(tp.packed_pred.float().numpy(), jpred[:e2, :, :A])
+    np.testing.assert_array_equal(tp.packed_pred.float().numpy(), jpred[perm, :, :A])
     jw = np.asarray(jp.packed_w.astype(jnp.float32)).reshape(-1, jp.packed_w.shape[1] * 128)
     # one fp32 division per weight; jit and eager may round it differently
-    np.testing.assert_allclose(tp.packed_w.float().numpy(), jw[:e2, :A], rtol=1e-2 if dtype == "bf16" else 3e-7)
-    np.testing.assert_array_equal(tp.packed_idx.numpy(), np.asarray(jp.packed_idx)[:e2])
+    np.testing.assert_allclose(tp.packed_w.float().numpy(), jw[perm, :A], rtol=1e-2 if dtype == "bf16" else 3e-7)
+    np.testing.assert_array_equal(tp.packed_idx.numpy(), idx[perm])
+    # K4's CSR over image-sorted slots walks them in order
+    np.testing.assert_array_equal(tp.packed_order.numpy(), np.arange(e2))
+
+
+# ------------------------------------------------ K5 and the image-sorted pack
+
+def _layout_scene(n, graph):
+    """The two scenes of tests/test_edge_loss.py:90: n=4 complete (one
+    chunk, natural order) and n=300 swin-1 (image-chunked, dummy slots)."""
+    pairs = make_pairs(n, graph, symmetrize=True)
+    E, H, W = len(pairs), 8, 16
+    r = np.random.default_rng(n)
+    out = {"view1": {"idx": np.array([p[0] for p in pairs])},
+           "view2": {"idx": np.array([p[1] for p in pairs])},
+           "pred1": {"pts3d": r.standard_normal((E, H, W, 3)).astype(np.float32),
+                     "conf": (1 + r.uniform(size=(E, H, W))).astype(np.float32)},
+           "pred2": {"pts3d_in_other_view": r.standard_normal((E, H, W, 3)).astype(np.float32),
+                     "conf": (1 + r.uniform(size=(E, H, W))).astype(np.float32)}}
+    jcfg, jdata, _ = js.build_scene(
+        {k: ({kk: jnp.asarray(v) for kk, v in d.items()} if k.startswith("pred") else d)
+         for k, d in out.items()})
+    tcfg, tdata, _ = ts.build_scene(out)
+    meta = js._edge_meta(jcfg)
+    assert (meta.nc > 0) == (n == 300), meta
+    idx_np = np.concatenate([np.asarray(jdata.ei), np.asarray(jdata.ej)]).astype(np.int64)
+    if meta.nc:
+        slots, perm, *_ = js._chunk_layout(idx_np, meta)
+        valid = slots >= 0
+    else:
+        perm = np.concatenate([np.arange(2 * E), np.zeros(meta.e2 - 2 * E)]).astype(np.int32)
+        valid = np.arange(meta.e2) < 2 * E
+    return jcfg, jdata, tcfg, tdata, meta, perm.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n, graph", [(4, "complete"), (300, "swin-1")])
+def test_permute_packed_plain_matches_pallas_interpret(n, graph, dtype):
+    """K5's plain version against the Pallas permute_packed in interpret
+    mode, bit for bit, on the JAX layouts' perm / valid (dummy slots copy
+    term 0 with weight exactly 0)."""
+    jcfg, jdata, _, _, meta, perm, valid = _layout_scene(n, graph)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
+                else (jnp.bfloat16, torch.bfloat16))
+    E, la = jcfg.n_edges, meta.la
+    r = np.random.default_rng(7)
+    packs = [jel.pack_points(jnp.asarray(r.standard_normal((E, 40, 3)), jnp.float32), la, jdt)
+             for _ in range(2)]
+    packs += [jel.pack_scalars(jnp.asarray(r.uniform(-1, 1, (E, 40)), jnp.float32), la, jdt)
+              for _ in range(2)]
+    jpred, jw = jel.permute_packed(*packs, jnp.asarray(perm), jnp.asarray(valid, jnp.int32),
+                                   e2=meta.e2, e_split=E, interpret=True)
+    tpacks = [torch.from_numpy(np.array(p.astype(jnp.float32)).reshape(E, *p.shape[1:-2], -1)
+                               ).to(tdt) for p in packs]
+    tpred, tw = tel.permute_packed(*tpacks, torch.from_numpy(perm),
+                                   torch.from_numpy(valid.astype(np.int32)))
+    assert tpred.dtype == tdt and tw.dtype == tdt
+    np.testing.assert_array_equal(tpred.float().numpy(),
+                                  np.asarray(jpred.astype(jnp.float32)).reshape(meta.e2, 3, -1))
+    np.testing.assert_array_equal(tw.float().numpy(),
+                                  np.asarray(jw.astype(jnp.float32)).reshape(meta.e2, -1))
+    assert (tw[torch.from_numpy(~valid)] == 0).all()
+
+
+@pytest.mark.parametrize("n, graph", [(4, "complete"), (300, "swin-1")])
+def test_image_sorted_pack_matches_fast_pack(n, graph):
+    """The port's pack against JAX's default "fast" pack (natural lane pack
+    + Pallas permute in interpret mode), term by term, in bf16 and fp32:
+    each port slot holds the JAX slot of the same term. At n=300 JAX's
+    image-chunked slots with the dummies taken out are the port's slots in
+    the same order; at n=4 JAX keeps the natural order."""
+    jcfg, jdata, tcfg, tdata, meta, perm, valid = _layout_scene(n, graph)
+    A = jcfg.imshape[0] * jcfg.imshape[1]
+    jslot = np.empty(2 * jcfg.n_edges, np.int64)            # JAX slot of each term
+    jslot[perm[valid]] = np.flatnonzero(valid)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jp = js.pack_scene(jdata, jcfg, dtype=jdt, impl="fast")
+        tp = ts.pack_scene(tdata, tcfg, dtype=tdt)
+        np.testing.assert_array_equal(np.asarray(jp.packed_perm), perm)
+        tperm = tp.packed_perm.numpy()
+        if meta.nc:
+            np.testing.assert_array_equal(tperm, perm[valid])
+        at = jslot[tperm]
+        jpred = np.asarray(jp.packed_pred.astype(jnp.float32)).reshape(meta.e2, 3, -1)
+        np.testing.assert_array_equal(tp.packed_pred.float().numpy(), jpred[at][:, :, :A])
+        jw = np.asarray(jp.packed_w.astype(jnp.float32)).reshape(meta.e2, -1)
+        # one fp32 division per weight; jit and eager may round it differently
+        np.testing.assert_allclose(tp.packed_w.float().numpy(), jw[at][:, :A],
+                                   rtol=1e-2 if tdt == torch.bfloat16 else 3e-7)
+        ids = np.concatenate([np.asarray(jdata.ei), np.asarray(jdata.ej)])
+        np.testing.assert_array_equal(tp.packed_idx.numpy(), ids[tperm])
+        assert (np.diff(tp.packed_idx.numpy()) >= 0).all()
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -105,7 +105,7 @@ def test_engine_matches_jax(weights, dtype):
                 else (jnp.bfloat16, torch.bfloat16))
     ref = jinference(pairs, params, CFG, jnp.asarray(imgs), jnp.asarray(priors),
                      batch_size=4, dtype=jdt, head_dtype=jdt)
-    got = tinference(pairs, model.prepare(tdt, tdt), imgs, priors, batch_size=4,
+    got = tinference(pairs, model.prepare(tdt, tdt, device="cpu"), imgs, priors, batch_size=4,
                      encode_chunk=4)
     np.testing.assert_array_equal(got["view1"]["idx"], ref["view1"]["idx"])
     np.testing.assert_array_equal(got["view2"]["idx"], ref["view2"]["idx"])
@@ -121,7 +121,7 @@ def test_blocks_match_jax(weights):
     """Encoder block and the stacked dual-stream decoder block on prepared
     weights against the JAX blocks (XLA path), fp32."""
     params, model = weights
-    pm = model.prepare(torch.float32, torch.float32)
+    pm = model.prepare(torch.float32, torch.float32, device="cpu")
     r = np.random.default_rng(2)
     gh, gw = 3, 4
     x = r.standard_normal((2, gh * gw, CFG.enc_embed_dim)).astype(np.float32)
@@ -148,7 +148,7 @@ def test_dpt_head_matches_jax(weights, dtype):
     params, model = weights
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "fp32"
                 else (jnp.bfloat16, torch.bfloat16))
-    pm = model.prepare(tdt, tdt)
+    pm = model.prepare(tdt, tdt, device="cpu")
     r = np.random.default_rng(3)
     gh, gw = H // 16, W // 16
     hooks = [r.standard_normal((2, gh * gw, d)).astype(np.float32)

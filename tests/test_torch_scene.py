@@ -221,10 +221,3 @@ def test_precision_modes_and_step_offset():
              step0=7)
     assert seen == [7, 8, 9]
 
-
-def test_flow_terms_not_in_slice_raise():
-    out, _ = _output()
-    cfg, data, params = ts.build_scene(out, dict(SCENE_KW, flow_loss_weight=0.01))
-    data = dataclasses.replace(data, flow_ij=torch.zeros(1), flow_ji=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="flow"):
-        tflow(params, data, cfg)
