@@ -22,6 +22,13 @@ __device__ __forceinline__ float bf16r(float x) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
 __device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr,
                                            int src_bytes) {
   // 16-byte async copy global -> shared; src_bytes = 0 zero-fills the slot

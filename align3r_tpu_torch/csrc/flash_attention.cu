@@ -1,0 +1,558 @@
+// K9: flash attention, forward and backward, for Hopper.
+//
+// Replaces align3r_tpu/ops/attention.py: stock_flash_attention (:44-68), which
+// runs JAX's library Pallas TPU flash attention
+// (jax/experimental/pallas/ops/tpu/flash_attention.py: forward kernel
+// _flash_attention_kernel_single_batch :342, dK/dV kernel :796, dQ kernel
+// :1146). For q, k, v (BH, N, D), D in {64, 128, 256}, Nq == Nk == N, any N:
+//   forward: per key tile of BK keys, S = (q k^T) * D^-1/2 in fp32; keys >= N
+//     masked to -inf (every tile holds a valid key, so no row is all -inf;
+//     the TPU kernel adds a large negative mask_value instead, and both give
+//     exp() == 0); online row max m and sum l of the unrounded
+//     p = exp(S - m_running); P rounded to v's dtype before P V
+//     (flash_attention.py:447, 470-471), fp32 accumulation. O = acc / l in
+//     q's dtype, and the fp32 log-sum-exp m + log(l) per row.
+//   backward: Di = sum(O * dO) in fp32 (:273); P = exp(S - LSE) recomputed;
+//     dV += P^T dO with P rounded to dO's dtype (:900); dS = (dO V^T - Di) * P
+//     * D^-1/2 rounded to dO's dtype before dK += dS^T Q and dQ += dS K
+//     (:918, :1255). One kernel per key tile for dK/dV (looping over query
+//     tiles) and one per query tile for dQ (looping over key tiles): no
+//     atomics, so the result is deterministic.
+// The JAX wrapper pads N to a multiple of 128 with segment ids; these kernels
+// mask the ragged last tile themselves and make no padded copy.
+//
+// What bounds it on the H100: at the 512x512 training shapes (4, 16, 1024, 64)
+// the forward does 4 * 64 * 1024^2 * 64 = 17.2 GFLOP against 33.6 MB of q, k,
+// v and o: 17 us of bf16 tensor-core time against 10 us of memory, so
+// operations bound it; the backward does 2.5x the operations. The (N, N)
+// scores never reach device memory.
+//
+// Design (simple and right first; wgmma, TMA and warp specialisation are
+// later work): 4 warps per block. Every product is a set of 16 x 16 output
+// tiles accumulated in fp32 in shared memory by one warp (warp_tile below):
+// WMMA bf16 -> fp32 for bf16 inputs, scalar FMA in fp32 without TF32 for
+// fp32 inputs, as K6's fp32 path. Tiles are staged with 16-byte cp.async.
+// Tile sizes per (dtype, D) are chosen in Tiles<T, D> so the shared
+// memory stays within the 227 KB a block may opt in to; D = 256 takes
+// smaller key or query tiles, with cudaFuncSetAttribute opting in above 48 KB.
+#include "common.cuh"
+
+#include <mma.h>
+
+#include <type_traits>
+
+namespace a3r {
+namespace fa {
+
+constexpr int THREADS = 128;   // 4 warps
+constexpr int SMEM_MAX = 232448;
+
+struct RowMajor {};
+struct ColMajor {};
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+
+// C (16 x 16 fp32, row stride ldc) = (zero ? 0 : C) + A (16 x kdim) B (kdim x
+// 16), computed by the calling warp. A's element (i, k) is A[i * lda + k]
+// (RowMajor) or A[i + k * lda] (ColMajor); B's (k, j) is B[k * ldb + j]
+// (RowMajor) or B[k + j * ldb] (ColMajor). kdim is a multiple of 16.
+template <typename LA, typename LB>
+__device__ __forceinline__ void warp_tile(float* C, int ldc, const bf16* A, int lda,
+                                          const bf16* B, int ldb, int kdim, bool zero) {
+  using namespace nvcuda;
+  using WA = typename std::conditional<std::is_same<LA, RowMajor>::value,
+                                       wmma::row_major, wmma::col_major>::type;
+  using WB = typename std::conditional<std::is_same<LB, RowMajor>::value,
+                                       wmma::row_major, wmma::col_major>::type;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  if (zero)
+    wmma::fill_fragment(acc, 0.0f);
+  else
+    wmma::load_matrix_sync(acc, C, ldc, wmma::mem_row_major);
+  for (int kk = 0; kk < kdim; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, WA> a;
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, WB> b;
+    wmma::load_matrix_sync(a, std::is_same<LA, RowMajor>::value ? A + kk : A + kk * lda, lda);
+    wmma::load_matrix_sync(b, std::is_same<LB, RowMajor>::value ? B + kk * ldb : B + kk, ldb);
+    wmma::mma_sync(acc, a, b, acc);
+  }
+  wmma::store_matrix_sync(C, acc, ldc, wmma::mem_row_major);
+  __syncwarp();
+}
+
+template <typename LA, typename LB>
+__device__ __forceinline__ void warp_tile(float* C, int ldc, const float* A, int lda,
+                                          const float* B, int ldb, int kdim, bool zero) {
+  // each lane owns row lane / 2, columns (lane & 1) * 8 .. + 8
+  const int lane = threadIdx.x & 31, i = lane >> 1, j0 = (lane & 1) * 8;
+  float c[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) c[j] = zero ? 0.f : C[i * ldc + j0 + j];
+  for (int k = 0; k < kdim; ++k) {
+    const float a = std::is_same<LA, RowMajor>::value ? A[i * lda + k] : A[i + k * lda];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float b = std::is_same<LB, RowMajor>::value ? B[k * ldb + j0 + j]
+                                                        : B[k + (j0 + j) * ldb];
+      c[j] = fmaf(a, b, c[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) C[i * ldc + j0 + j] = c[j];
+  __syncwarp();
+}
+
+// rows [r0, r0 + rows) of a (N, D) matrix into a shared tile of row stride
+// ld; rows past N are zero-filled. Does not commit or wait.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int r0, int rows,
+                                          int N) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;
+  for (int c = threadIdx.x; c < rows * CPR; c += THREADS) {
+    const int r = c / CPR, dc = (c % CPR) * EPC, g = r0 + r;
+    const bool ok = g < N;
+    cp_async16(dst + r * ld + dc, ok ? src + (size_t)g * D + dc : src, ok ? 16 : 0);
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* dst, const float* src, int ld, int r0,
+                                           int rows, int N) {
+  for (int e = threadIdx.x; e < rows * D; e += THREADS) {
+    const int r = e / D, c = e - r * D;
+    if (r0 + r < N) dst[(size_t)(r0 + r) * D + c] = from_f32<T>(src[r * ld + c]);
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+template <typename T, int D, int BK>
+struct FwdLayout {
+  static constexpr int BQ = 64;                     // 4 warps x 16 query rows
+  static constexpr int PADT = 16 / sizeof(T);
+  static constexpr int LDT = D + PADT;              // Q, K, V rows (T)
+  static constexpr int LDS = BK + 4;                // S rows (fp32)
+  static constexpr int LDP = BK + PADT;             // P rows (T)
+  static constexpr int LDO = D + 4;                 // O rows (fp32)
+  static constexpr int Q = 0;
+  static constexpr int K = align128(Q + BQ * LDT * (int)sizeof(T));
+  static constexpr int V = align128(K + BK * LDT * (int)sizeof(T));
+  static constexpr int S = align128(V + BK * LDT * (int)sizeof(T));
+  static constexpr int P = align128(S + BQ * LDS * 4);
+  static constexpr int O = align128(P + BQ * LDP * (int)sizeof(T));
+  static constexpr int L = align128(O + BQ * LDO * 4);
+  static constexpr int BYTES = L + BQ * 4;
+  static_assert(BYTES <= SMEM_MAX, "forward tiles exceed shared memory");
+};
+
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          T* __restrict__ o, float* __restrict__ lse, int N, float scale) {
+  using Lay = FwdLayout<T, D, BK>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + Lay::Q);
+  T* Ks = reinterpret_cast<T*>(smem + Lay::K);
+  T* Vs = reinterpret_cast<T*>(smem + Lay::V);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* Sw = reinterpret_cast<float*>(smem + Lay::S) + warp * 16 * Lay::LDS;
+  T* Pw = reinterpret_cast<T*>(smem + Lay::P) + warp * 16 * Lay::LDP;
+  float* Ow = reinterpret_cast<float*>(smem + Lay::O) + warp * 16 * Lay::LDO;
+  float* Lw = reinterpret_cast<float*>(smem + Lay::L) + warp * 16;
+
+  const size_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * Lay::BQ;
+  const T* qb = q + bh * N * D;
+  const T* kb = k + bh * N * D;
+  const T* vb = v + bh * N * D;
+
+  load_rows<T, D>(Qs, Lay::LDT, qb, q0, Lay::BQ, N);
+  for (int i = lane; i < 16 * D; i += 32) Ow[(i / D) * Lay::LDO + i % D] = 0.f;
+
+  // each lane owns row r of the warp's 16 and one half of the tile's columns
+  constexpr int HC = BK / 2, HD = D / 2;
+  const int r = lane >> 1, half = lane & 1;
+  float m_run = -INFINITY, l_run = 0.f;
+  const int n_tiles = (N + BK - 1) / BK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    load_rows<T, D>(Ks, Lay::LDT, kb, k0, BK, N);
+    load_rows<T, D>(Vs, Lay::LDT, vb, k0, BK, N);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      warp_tile<RowMajor, ColMajor>(Sw + j * 16, Lay::LDS, Qs + warp * 16 * Lay::LDT,
+                                    Lay::LDT, Ks + j * 16 * Lay::LDT, Lay::LDT, D, true);
+
+    const int lim = N - k0 - half * HC;      // valid columns in this lane's half
+    const float* srow = Sw + r * Lay::LDS + half * HC;
+    float tmax = -INFINITY;
+    for (int c = 0; c < HC && c < lim; ++c) tmax = fmaxf(tmax, srow[c] * scale);
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    const float m_new = fmaxf(m_run, tmax);
+    const float alpha = expf(m_run - m_new);   // 0 on the first tile
+    float psum = 0.f;
+    T* prow = Pw + r * Lay::LDP + half * HC;
+    for (int c = 0; c < HC; ++c) {
+      const float p = c < lim ? expf(srow[c] * scale - m_new) : 0.f;
+      psum += p;
+      prow[c] = from_f32<T>(p);
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    l_run = l_run * alpha + psum;
+    m_run = m_new;
+    float* orow = Ow + r * Lay::LDO + half * HD;
+    for (int c = 0; c < HD; ++c) orow[c] *= alpha;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      warp_tile<RowMajor, RowMajor>(Ow + j * 16, Lay::LDO, Pw, Lay::LDP, Vs + j * 16,
+                                    Lay::LDT, BK, false);
+    __syncthreads();   // K and V are overwritten by the next tile
+  }
+  if (half == 0) Lw[r] = l_run;
+  __syncwarp();
+  for (int i = lane; i < 16 * D; i += 32) {
+    const int rr = i / D, cc = i - rr * D;
+    Ow[rr * Lay::LDO + cc] /= Lw[rr];
+  }
+  const int row = q0 + warp * 16 + r;
+  if (half == 0 && row < N) lse[bh * N + row] = m_run + logf(l_run);
+  __syncthreads();   // the block's 64 rows of O, stored by all its threads
+  store_rows<T, D>(o + bh * N * D, reinterpret_cast<float*>(smem + Lay::O), Lay::LDO, q0,
+                   Lay::BQ, N);
+}
+
+// ----------------------------------------------------------------- backward
+
+// Di = sum over d of o * do, in fp32: one warp per row
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_di(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ di,
+             long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32)
+    s += to_f32(o[row * D + c]) * to_f32(dout[row * D + c]);
+  s = warp_sum(s);
+  if (lane == 0) di[row] = s;
+}
+
+// the tile layout shared by the dK/dV and dQ kernels: a resident (R rows) side
+// and a streamed (SR rows) side
+template <typename T, int D, int R, int SR>
+struct BwdLayout {
+  static constexpr int PADT = 16 / sizeof(T);
+  static constexpr int LDT = D + PADT;
+  static constexpr int LDO = D + 4;
+  static constexpr int R0 = 0;                                          // 2 resident tiles
+  static constexpr int S0 = align128(R0 + 2 * R * LDT * (int)sizeof(T));  // 2 streamed tiles
+  static constexpr int END = align128(S0 + 2 * SR * LDT * (int)sizeof(T));
+};
+
+template <typename T, int D, int BKB, int BQB>
+struct DkvLayout {
+  using B = BwdLayout<T, D, BKB, BQB>;
+  static constexpr int LDS = BKB + 4;               // S, dP (fp32), BQB rows
+  static constexpr int LDP = BKB + B::PADT;         // P, dS (T), BQB rows
+  static constexpr int S = B::END;
+  static constexpr int DP = align128(S + BQB * LDS * 4);
+  static constexpr int P = align128(DP + BQB * LDS * 4);
+  static constexpr int DS = align128(P + BQB * LDP * (int)sizeof(T));
+  static constexpr int LS = align128(DS + BQB * LDP * (int)sizeof(T));
+  static constexpr int DI = align128(LS + BQB * 4);
+  static constexpr int DK = align128(DI + BQB * 4);
+  static constexpr int DV = align128(DK + BKB * B::LDO * 4);
+  static constexpr int BYTES = DV + BKB * B::LDO * 4;
+  static_assert(BYTES <= SMEM_MAX, "dK/dV tiles exceed shared memory");
+};
+
+// one block per (head, BKB-key tile): dK, dV accumulated over every query tile
+template <typename T, int D, int BKB, int BQB>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const float* __restrict__ lse, const T* __restrict__ dout,
+              const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+              int N, float scale) {
+  using Lay = DkvLayout<T, D, BKB, BQB>;
+  using B = typename Lay::B;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem + B::R0);
+  T* Vs = Ks + BKB * B::LDT;
+  T* Qs = reinterpret_cast<T*>(smem + B::S0);
+  T* dOs = Qs + BQB * B::LDT;
+  float* S = reinterpret_cast<float*>(smem + Lay::S);
+  float* dP = reinterpret_cast<float*>(smem + Lay::DP);
+  T* P = reinterpret_cast<T*>(smem + Lay::P);
+  T* dS = reinterpret_cast<T*>(smem + Lay::DS);
+  float* Ls = reinterpret_cast<float*>(smem + Lay::LS);
+  float* Ds = reinterpret_cast<float*>(smem + Lay::DI);
+  float* dKs = reinterpret_cast<float*>(smem + Lay::DK);
+  float* dVs = reinterpret_cast<float*>(smem + Lay::DV);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * BKB;
+  const size_t off = bh * N * D;
+
+  load_rows<T, D>(Ks, B::LDT, k + off, k0, BKB, N);
+  load_rows<T, D>(Vs, B::LDT, v + off, k0, BKB, N);
+  for (int e = tid; e < BKB * B::LDO; e += THREADS) dKs[e] = dVs[e] = 0.f;
+
+  constexpr int SJ = BKB / 16, NS = (BQB / 16) * SJ, OJ = D / 16, NO = (BKB / 16) * OJ;
+  for (int q0 = 0; q0 < N; q0 += BQB) {
+    load_rows<T, D>(Qs, B::LDT, q + off, q0, BQB, N);
+    load_rows<T, D>(dOs, B::LDT, dout + off, q0, BQB, N);
+    cp_async_commit();
+    for (int i = tid; i < BQB; i += THREADS) {
+      const bool ok = q0 + i < N;
+      Ls[i] = ok ? lse[bh * N + q0 + i] : 0.f;
+      Ds[i] = ok ? di[bh * N + q0 + i] : 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int f = warp; f < NS; f += 4) {       // S = Q K^T, dP = dO V^T
+      const int fi = f / SJ, fj = f % SJ;
+      warp_tile<RowMajor, ColMajor>(S + fi * 16 * Lay::LDS + fj * 16, Lay::LDS,
+                                    Qs + fi * 16 * B::LDT, B::LDT, Ks + fj * 16 * B::LDT,
+                                    B::LDT, D, true);
+      warp_tile<RowMajor, ColMajor>(dP + fi * 16 * Lay::LDS + fj * 16, Lay::LDS,
+                                    dOs + fi * 16 * B::LDT, B::LDT, Vs + fj * 16 * B::LDT,
+                                    B::LDT, D, true);
+    }
+    __syncthreads();
+    for (int e = tid; e < BQB * BKB; e += THREADS) {
+      const int i = e / BKB, j = e - i * BKB;
+      const bool ok = q0 + i < N && k0 + j < N;
+      const float p = ok ? expf(S[i * Lay::LDS + j] * scale - Ls[i]) : 0.f;
+      const float ds = (dP[i * Lay::LDS + j] - Ds[i]) * p * scale;
+      P[i * Lay::LDP + j] = from_f32<T>(p);
+      dS[i * Lay::LDP + j] = from_f32<T>(ds);
+    }
+    __syncthreads();
+    for (int f = warp; f < NO; f += 4) {       // dV += P^T dO, dK += dS^T Q
+      const int fi = f / OJ, fj = f % OJ;
+      warp_tile<ColMajor, RowMajor>(dVs + fi * 16 * B::LDO + fj * 16, B::LDO,
+                                    P + fi * 16, Lay::LDP, dOs + fj * 16, B::LDT, BQB, false);
+      warp_tile<ColMajor, RowMajor>(dKs + fi * 16 * B::LDO + fj * 16, B::LDO,
+                                    dS + fi * 16, Lay::LDP, Qs + fj * 16, B::LDT, BQB, false);
+    }
+    __syncthreads();   // Q, dO, P and dS are overwritten by the next query tile
+  }
+  store_rows<T, D>(dk + off, dKs, B::LDO, k0, BKB, N);
+  store_rows<T, D>(dv + off, dVs, B::LDO, k0, BKB, N);
+}
+
+template <typename T, int D, int BQ, int BKB>
+struct DqLayout {
+  using B = BwdLayout<T, D, BQ, BKB>;
+  static constexpr int LDS = BKB + 4;
+  static constexpr int LDP = BKB + B::PADT;
+  static constexpr int S = B::END;
+  static constexpr int DP = align128(S + BQ * LDS * 4);
+  static constexpr int DS = align128(DP + BQ * LDS * 4);
+  static constexpr int LS = align128(DS + BQ * LDP * (int)sizeof(T));
+  static constexpr int DI = align128(LS + BQ * 4);
+  static constexpr int DQ = align128(DI + BQ * 4);
+  static constexpr int BYTES = DQ + BQ * B::LDO * 4;
+  static_assert(BYTES <= SMEM_MAX, "dQ tiles exceed shared memory");
+};
+
+// one block per (head, BQ-query tile): dQ accumulated over every key tile
+template <typename T, int D, int BQ, int BKB>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const float* __restrict__ lse, const T* __restrict__ dout,
+             const float* __restrict__ di, T* __restrict__ dq, int N, float scale) {
+  using Lay = DqLayout<T, D, BQ, BKB>;
+  using B = typename Lay::B;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + B::R0);
+  T* dOs = Qs + BQ * B::LDT;
+  T* Ks = reinterpret_cast<T*>(smem + B::S0);
+  T* Vs = Ks + BKB * B::LDT;
+  float* S = reinterpret_cast<float*>(smem + Lay::S);
+  float* dP = reinterpret_cast<float*>(smem + Lay::DP);
+  T* dS = reinterpret_cast<T*>(smem + Lay::DS);
+  float* Ls = reinterpret_cast<float*>(smem + Lay::LS);
+  float* Ds = reinterpret_cast<float*>(smem + Lay::DI);
+  float* dQs = reinterpret_cast<float*>(smem + Lay::DQ);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const size_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * BQ;
+  const size_t off = bh * N * D;
+
+  load_rows<T, D>(Qs, B::LDT, q + off, q0, BQ, N);
+  load_rows<T, D>(dOs, B::LDT, dout + off, q0, BQ, N);
+  for (int i = tid; i < BQ; i += THREADS) {
+    const bool ok = q0 + i < N;
+    Ls[i] = ok ? lse[bh * N + q0 + i] : 0.f;
+    Ds[i] = ok ? di[bh * N + q0 + i] : 0.f;
+  }
+  for (int e = tid; e < BQ * B::LDO; e += THREADS) dQs[e] = 0.f;
+
+  constexpr int SJ = BKB / 16, NS = (BQ / 16) * SJ, OJ = D / 16, NO = (BQ / 16) * OJ;
+  for (int k0 = 0; k0 < N; k0 += BKB) {
+    load_rows<T, D>(Ks, B::LDT, k + off, k0, BKB, N);
+    load_rows<T, D>(Vs, B::LDT, v + off, k0, BKB, N);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int f = warp; f < NS; f += 4) {
+      const int fi = f / SJ, fj = f % SJ;
+      warp_tile<RowMajor, ColMajor>(S + fi * 16 * Lay::LDS + fj * 16, Lay::LDS,
+                                    Qs + fi * 16 * B::LDT, B::LDT, Ks + fj * 16 * B::LDT,
+                                    B::LDT, D, true);
+      warp_tile<RowMajor, ColMajor>(dP + fi * 16 * Lay::LDS + fj * 16, Lay::LDS,
+                                    dOs + fi * 16 * B::LDT, B::LDT, Vs + fj * 16 * B::LDT,
+                                    B::LDT, D, true);
+    }
+    __syncthreads();
+    for (int e = tid; e < BQ * BKB; e += THREADS) {
+      const int i = e / BKB, j = e - i * BKB;
+      const bool ok = q0 + i < N && k0 + j < N;
+      const float p = ok ? expf(S[i * Lay::LDS + j] * scale - Ls[i]) : 0.f;
+      dS[i * Lay::LDP + j] = from_f32<T>((dP[i * Lay::LDS + j] - Ds[i]) * p * scale);
+    }
+    __syncthreads();
+    for (int f = warp; f < NO; f += 4) {       // dQ += dS K
+      const int fi = f / OJ, fj = f % OJ;
+      warp_tile<RowMajor, RowMajor>(dQs + fi * 16 * B::LDO + fj * 16, B::LDO,
+                                    dS + fi * 16 * Lay::LDP, Lay::LDP, Ks + fj * 16,
+                                    B::LDT, BKB, false);
+    }
+    __syncthreads();   // K, V and dS are overwritten by the next key tile
+  }
+  store_rows<T, D>(dq + off, dQs, B::LDO, q0, BQ, N);
+}
+
+// ------------------------------------------------------------------ launch
+
+template <typename Kern>
+cudaError_t opt_in(Kern kern, int bytes) {
+  // one attribute call per instantiation; above 48 KB only as opted-in
+  // dynamic shared memory
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Tile sizes: forward (64 queries, BK keys); dK/dV (BKB keys, BQB queries);
+// dQ (BQ queries, BKQ keys). The forward's BK is the key-block width of the
+// plain version in ops/flash_attention.py (block_k()).
+template <typename T, int D>
+struct Tiles;
+template <int D>
+struct Tiles<bf16, D> {
+  static constexpr int BK = 64;
+  static constexpr int DKV_K = D == 256 ? 32 : 64, DKV_Q = 64;
+  static constexpr int DQ_Q = 64, DQ_K = D == 256 ? 32 : 64;
+};
+template <int D>
+struct Tiles<float, D> {
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int DKV_K = D == 64 ? 64 : 32, DKV_Q = D == 256 ? 32 : 64;
+  static constexpr int DQ_Q = D == 256 ? 32 : 64, DQ_K = D == 64 ? 64 : 32;
+};
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                       int BH, int N, float scale, cudaStream_t s) {
+  constexpr int BK = Tiles<T, D>::BK;
+  using Lay = FwdLayout<T, D, BK>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = opt_in(flash_fwd<T, D, BK>, Lay::BYTES);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid(BH, (N + Lay::BQ - 1) / Lay::BQ);
+  flash_fwd<T, D, BK><<<grid, THREADS, Lay::BYTES, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, N, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                       void* di, int BH, int N, float scale, cudaStream_t s) {
+  using Tl = Tiles<T, D>;
+  using LKV = DkvLayout<T, D, Tl::DKV_K, Tl::DKV_Q>;
+  using LQ = DqLayout<T, D, Tl::DQ_Q, Tl::DQ_K>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = opt_in(flash_bwd_dkv<T, D, Tl::DKV_K, Tl::DKV_Q>, LKV::BYTES);
+    if (e == cudaSuccess) e = opt_in(flash_bwd_dq<T, D, Tl::DQ_Q, Tl::DQ_K>, LQ::BYTES);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const long long rows = (long long)BH * N;
+  flash_bwd_di<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      (const T*)o, (const T*)dout, (float*)di, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dim3 gkv(BH, (N + Tl::DKV_K - 1) / Tl::DKV_K);
+  flash_bwd_dkv<T, D, Tl::DKV_K, Tl::DKV_Q><<<gkv, THREADS, LKV::BYTES, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)lse, (const T*)dout,
+      (const float*)di, (T*)dk, (T*)dv, N, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dim3 gq(BH, (N + Tl::DQ_Q - 1) / Tl::DQ_Q);
+  flash_bwd_dq<T, D, Tl::DQ_Q, Tl::DQ_K><<<gq, THREADS, LQ::BYTES, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)lse, (const T*)dout,
+      (const float*)di, (T*)dq, N, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_by_d(int D, const void* q, const void* k, const void* v, void* o,
+                     void* lse, int BH, int N, float scale, cudaStream_t s) {
+  if (D == 64) return launch_fwd<T, 64>(q, k, v, o, lse, BH, N, scale, s);
+  if (D == 128) return launch_fwd<T, 128>(q, k, v, o, lse, BH, N, scale, s);
+  return launch_fwd<T, 256>(q, k, v, o, lse, BH, N, scale, s);
+}
+
+template <typename T>
+cudaError_t bwd_by_d(int D, const void* q, const void* k, const void* v, const void* o,
+                     const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                     void* di, int BH, int N, float scale, cudaStream_t s) {
+  if (D == 64)
+    return launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+  if (D == 128)
+    return launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+  return launch_bwd<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+}
+
+bool bad_args(int BH, int N, int D) {
+  return BH <= 0 || N <= 0 || !(D == 64 || D == 128 || D == 256) || (N + 31) / 32 > 65535;
+}
+
+}  // namespace fa
+}  // namespace a3r
+
+using namespace a3r::fa;
+
+// q, k, v, o (BH, N, D) in one dtype (bf16 or fp32), contiguous and 16-byte
+// aligned; lse (BH, N) fp32.
+A3R_EXPORT int a3r_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                             void* lse, int BH, int N, int D, int is_bf16, float scale,
+                             void* stream) {
+  if (bad_args(BH, N, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? fwd_by_d<bf16>(D, q, k, v, o, lse, BH, N, scale, s)
+                       : fwd_by_d<float>(D, q, k, v, o, lse, BH, N, scale, s));
+}
+
+// dq, dk, dv (BH, N, D) in the inputs' dtype; di (BH, N) fp32 scratch.
+A3R_EXPORT int a3r_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* lse, const void* dout, void* dq, void* dk,
+                             void* dv, void* di, int BH, int N, int D, int is_bf16,
+                             float scale, void* stream) {
+  if (bad_args(BH, N, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16
+                   ? bwd_by_d<bf16>(D, q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s)
+                   : bwd_by_d<float>(D, q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s));
+}

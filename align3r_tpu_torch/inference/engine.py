@@ -27,13 +27,14 @@ from align3r_tpu_torch.models.align3r import (PreparedAlign3R, decode_heads,
 @torch.no_grad()
 def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
               imgs, priors, batch_size: int = 16,
-              encode_chunk: int = 16) -> Dict:
+              encode_chunk: int = 16, head_conv_impl: str = "xla") -> Dict:
     """Run the two-view network over a frame graph.
 
     pairs: (i, j) image-index edges; imgs (n, H, W, 3) normalised images and
     priors (n, H, W, 3) normalised prior pointclouds, tensors or arrays
     (moved to the model's device). Compute dtypes are the prepared model's
-    (``model.dtype``, ``model.head_dtype``)."""
+    (``model.dtype``, ``model.head_dtype``). head_conv_impl: "xla" or
+    "pipeline" (K7/K8 heads, JAX engine.py:270)."""
     # fp32 convolutions (the pinned final head conv, an fp32 engine) must not
     # run in TF32: the reference keeps them in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -64,7 +65,7 @@ def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
         pc = torch.cat([pc_tok.index_select(0, bi), pc_tok.index_select(0, bj)])
         hooks1, hooks2 = decode_pair(model, feats.index_select(0, bi),
                                      feats.index_select(0, bj), pc, grid)
-        r1, r2 = decode_heads(model, hooks1, hooks2, (H, W))
+        r1, r2 = decode_heads(model, hooks1, hooks2, (H, W), head_conv_impl)
         outs1.append(r1)
         outs2.append(r2)
     res1 = {k: torch.cat([o[k] for o in outs1]) for k in outs1[0]}

@@ -351,15 +351,16 @@ def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw):
     return hook_list(feat1, 0), hook_list(feat2, 1)
 
 
-def decode_heads(pm: PreparedAlign3R, hooks1, hooks2, img_hw):
-    """Both DPT heads on the decoder hooks -> (res1, res2) fp32 dicts."""
+def decode_heads(pm: PreparedAlign3R, hooks1, hooks2, img_hw, conv_impl: str = "xla"):
+    """Both DPT heads on the decoder hooks -> (res1, res2) fp32 dicts.
+    conv_impl: "xla" | "pipeline" (models/dpt_head.py)."""
     cfg = pm.cfg
     H, W = img_hw
     grid = (H // cfg.patch_size, W // cfg.patch_size)
     res1 = apply_dpt_head(pm.head1, hooks1, grid, img_hw, cfg.depth_mode,
-                          cfg.conf_mode, pm.head_dtype)
+                          cfg.conf_mode, pm.head_dtype, conv_impl)
     res2 = apply_dpt_head(pm.head2, hooks2, grid, img_hw, cfg.depth_mode,
-                          cfg.conf_mode, pm.head_dtype)
+                          cfg.conf_mode, pm.head_dtype, conv_impl)
     return res1, res2
 
 

@@ -1,5 +1,4 @@
-"""DPT regression head (port of align3r_tpu/models/dpt_head.py, the XLA conv
-path only).
+"""DPT regression head (port of align3r_tpu/models/dpt_head.py).
 
 ``DPTOutputAdapter`` carries the reference parameter names
 (``act_postprocess``, ``scratch.layer{k}_rn`` with its ``scratch.layer_rn``
@@ -9,7 +8,10 @@ alias, ``scratch.refinenet{k}.resConfUnit{1,2}``, ``head.{0,2,4}``).
 ``dpt_head_params`` for training (differentiable). The conv pyramid runs in
 ``dtype`` (bf16 by default in the engine, fp32 in training), the final
 regression conv and the postprocess pinned to fp32 (engine.py:288-293,
-dpt_head.py:147).
+dpt_head.py:147). ``conv_impl="pipeline"`` runs each refinenet's residual
+units through K7 and the head tail through K8 (ops/dpt_pipeline.py) where
+their gates hold, and the XLA path where they fail, as the JAX head does
+(dpt_head.py:75-89, 135-143); "xla" is the default.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 
 from align3r_tpu_torch.models import nn as L
 from align3r_tpu_torch.models.postprocess import postprocess
+from align3r_tpu_torch.ops import dpt_pipeline as DP
 
 LAYER_DIMS = (96, 192, 384, 768)
 FEATURE_DIM = 256
@@ -129,18 +132,23 @@ def _residual_conv_unit(p, x):
     return out + x
 
 
-def _fusion(p, x, skip=None):
-    if skip is not None:
-        x = x + _residual_conv_unit(p["res1"], skip)
-    x = _residual_conv_unit(p["res2"], x)
+def _fusion(p, x, skip=None, conv_impl="xla"):
+    if conv_impl == "pipeline" and DP.supported(x) and (skip is None or DP.supported(skip)):
+        x = DP.fused_fusion_pre(x, p, skip=skip)
+    else:
+        if skip is not None:
+            x = x + _residual_conv_unit(p["res1"], skip)
+        x = _residual_conv_unit(p["res2"], x)
     B, H, W, C = x.shape
     x = L.bilinear_resize(x, H * 2, W * 2, align_corners=True)
     return L.conv2d(x, *p["out_conv"])
 
 
 def apply_dpt_head(p, hook_tokens: List[torch.Tensor], grid_hw, img_hw,
-                   depth_mode=None, conf_mode=None, dtype=torch.float32):
-    """hook_tokens: 4 tensors (B, N, C_hook); grid_hw (nh, nw); img_hw (H, W).
+                   depth_mode=None, conf_mode=None, dtype=torch.float32,
+                   conv_impl: str = "xla"):
+    """hook_tokens: 4 tensors (B, N, C_hook); grid_hw (nh, nw); img_hw (H, W);
+    conv_impl "xla" | "pipeline" (see the module docstring).
     Returns {'pts3d' (B, H, W, 3), 'conf' (B, H, W)} in fp32."""
     nh, nw = grid_hw
     H, W = img_hw
@@ -156,15 +164,18 @@ def apply_dpt_head(p, hook_tokens: List[torch.Tensor], grid_hw, img_hw,
     l3 = L.conv2d(l3, *p["layer3_rn"], padding=1)
     l4 = L.conv2d(l4, *p["layer4_rn"], padding=1)
 
-    path4 = _fusion(p["refinenet4"], l4)[:, :l3.shape[1], :l3.shape[2], :]
-    path3 = _fusion(p["refinenet3"], path4, l3)
-    path2 = _fusion(p["refinenet2"], path3, l2)
-    path1 = _fusion(p["refinenet1"], path2, l1)
+    path4 = _fusion(p["refinenet4"], l4, conv_impl=conv_impl)[:, :l3.shape[1], :l3.shape[2], :]
+    path3 = _fusion(p["refinenet3"], path4, l3, conv_impl)
+    path2 = _fusion(p["refinenet2"], path3, l2, conv_impl)
+    path1 = _fusion(p["refinenet1"], path2, l1, conv_impl)
 
-    x = L.conv2d(path1, *p["head_conv1"], padding=1)
-    x = L.bilinear_resize(x, x.shape[1] * 2, x.shape[2] * 2, align_corners=True)
-    x = torch.relu(L.conv2d(x, *p["head_conv2"], padding=1))
-    out = L.conv2d(x.float(), *p["head_conv3"])
+    if conv_impl == "pipeline" and DP.head_trio_supported(path1):
+        out = DP.fused_head_final(path1, p["head_conv1"], p["head_conv2"], p["head_conv3"])
+    else:
+        x = L.conv2d(path1, *p["head_conv1"], padding=1)
+        x = L.bilinear_resize(x, x.shape[1] * 2, x.shape[2] * 2, align_corners=True)
+        x = torch.relu(L.conv2d(x, *p["head_conv2"], padding=1))
+        out = L.conv2d(x.float(), *p["head_conv3"])
     out = out[:, :H, :W, :]
     if depth_mode is None:
         return out

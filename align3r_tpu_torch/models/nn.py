@@ -76,3 +76,21 @@ def bilinear_resize(x, out_h: int, out_w: int, align_corners: bool = True):
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w),
                       mode="bilinear", align_corners=align_corners)
     return y.permute(0, 2, 3, 1)
+
+
+def _interp_matrix(in_size: int, out_size: int, align_corners: bool):
+    """(out, in) bilinear interpolation matrix (two nonzeros per row), a
+    numpy copy of the JAX nn._interp_matrix (nn.py:166-180)."""
+    import numpy as np
+    d = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        c = d * ((in_size - 1) / max(out_size - 1, 1)) if out_size > 1 else np.zeros(1)
+    else:
+        c = np.clip((d + 0.5) * (in_size / out_size) - 0.5, 0.0, in_size - 1)
+    lo = np.clip(np.floor(c).astype(np.int64), 0, in_size - 1)
+    hi = np.clip(lo + 1, 0, in_size - 1)
+    w = c - lo
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), lo] += (1 - w)
+    m[np.arange(out_size), hi] += w
+    return m

@@ -39,6 +39,10 @@ _SIGNATURES = {
     "a3r_edge_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "a3r_edge_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "a3r_permute_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+    "a3r_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "a3r_flash_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "a3r_conv3x3": [_P] * 8 + [_I] * 9 + [_P],
+    "a3r_upsample2x": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _loaded: dict = {}
@@ -118,3 +122,9 @@ def check(code: int, what: str) -> None:
 def stream() -> int:
     import torch
     return torch.cuda.current_stream().cuda_stream
+
+
+def dense(t):
+    """t contiguous, with 16-byte aligned rows for the kernels' cp.async."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,0 +1,235 @@
+"""The DPT head's fused convolution stages: kernels K7 and K8 beside their
+plain PyTorch versions (port of align3r_tpu/ops/dpt_pipeline.py, the
+``head_conv_impl="pipeline"`` heads).
+
+K7 ``fused_res_unit`` replaces ``_res_unit_kernel`` (dpt_pipeline.py:101,
+called through ``_res_unit_call`` :176): the refinenet residual conv unit
+v + conv2(relu(conv1(relu(v)))) (+ base), NHWC, SAME zero padding, fp32
+accumulation with the bias added in fp32 before each conv's rounding to the
+storage dtype, the residual adds in the storage dtype. Its backward is
+autograd of the plain version, as the JAX custom VJP differentiates
+``_xla_twin`` (:238-258); no backward kernel is owed.
+
+K8 ``fused_head_final`` replaces ``_head_trio_kernel`` (:319, through
+``_head_trio_call`` :389): conv1 3x3 (rounded) -> 2x align_corners bilinear
+upsample, columns first with the column weights in the storage dtype (as JAX
+casts Aw to x's dtype, :473), rounded, then rows with fp32 weights, rounded
+-> relu(conv2 3x3 + b2) kept in fp32 -> the fp32 1x1 conv3. Returns
+(B, 2Hin, 2Win, Cout) fp32; the caller crops. No VJP, as in JAX.
+
+The XLA head (models/dpt_head.py) rounds each conv's output before adding its
+bias (nn.conv2d) and resizes rows first without the intermediate rounding, so
+the pipeline and XLA heads differ by one bf16 rounding per stage, in both
+packages.
+
+The CUDA implementation is csrc/dpt_pipeline.cu (one implicit-GEMM 3x3 conv
+kernel with three epilogues, and a two-tap upsample kernel); what bounds them
+and what the design does about it is written at the top of that file.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernels (counted on ``fused_res_unit.launches`` and
+``fused_head_final.launches``, once per call) or raises for a dtype or shape
+they do not take. There is no fallback.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from align3r_tpu_torch.models.nn import _interp_matrix
+from align3r_tpu_torch.ops import _lib
+from align3r_tpu_torch.ops.autograd import KernelWithTwin
+
+EPI_ROUND, EPI_RESID, EPI_HEAD = 0, 1, 2
+MAX_C3 = 16
+
+
+def supported(x) -> bool:
+    """The JAX gate of the fused residual unit (dpt_pipeline.py:86-88)."""
+    B, H, W, C = x.shape
+    return C % 128 == 0 and W >= 8 and H >= 2
+
+
+def head_trio_supported(x, TH: int = 16) -> bool:
+    """The JAX gate of the fused head tail (dpt_pipeline.py:455-458)."""
+    B, Hin, Win, C1 = x.shape
+    return C1 % 128 == 0 and Win % 8 == 0 and (2 * Hin) % TH == 0 and Hin >= 8
+
+
+def _taps(w):
+    """torch conv weight (out, in, 3, 3) -> (9, in, out), tap dh * 3 + dw."""
+    return w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
+
+
+def _unit_weights(unit, dtype):
+    """((w1, b1), (w2, b2)) torch convs -> ((2, 9, Cin, C) taps in `dtype`,
+    (2, C) fp32 biases), as JAX _unit_weights (:261-269)."""
+    (w1, b1), (w2, b2) = unit
+    return (torch.stack([_taps(w1), _taps(w2)]).to(dtype),
+            torch.stack([b1, b2]).float())
+
+
+def _conv_plain(x, taps, bias):
+    """3x3 SAME conv of the storage-dtype operands with fp32 accumulation,
+    plus the fp32 bias; returns fp32."""
+    Cin, Cout = taps.shape[1:]
+    w = taps.reshape(3, 3, Cin, Cout).permute(3, 2, 0, 1).float()
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(), w, padding=1).permute(0, 2, 3, 1)
+    return y + bias.float()
+
+
+def res_unit_plain(v, base, w, bias):
+    """Plain version of K7, and the twin whose autograd is its backward (the
+    JAX _xla_twin, :219-235). w (2, 9, C, C) taps, bias (2, C) fp32."""
+    a = _conv_plain(torch.relu(v), w[0], bias[0]).to(v.dtype)
+    a = _conv_plain(torch.relu(a), w[1], bias[1]).to(v.dtype)
+    y = v + a
+    return y if base is None else y + base
+
+
+def _check_act(name, t, dtype=None):
+    if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"K7/K8 take bf16 or fp32 CUDA tensors; {name} is "
+                         f"{t.dtype} on {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"K7/K8 need one storage dtype; {name} is {t.dtype}, not {dtype}")
+
+
+def _conv(x, taps, bias, out, epi, relu, resid=None, base=None, w3=None, b3=None):
+    """One launch of the implicit-GEMM 3x3 conv kernel (csrc conv3x3_kernel)."""
+    B, H, W, Cin = x.shape
+    Cout = taps.shape[-1]
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _lib.check(_lib.library().a3r_conv3x3(
+        x.data_ptr(), taps.data_ptr(), bias.data_ptr(), out.data_ptr(), ptr(resid),
+        ptr(base), ptr(w3), ptr(b3), B, H, W, Cin, Cout,
+        0 if w3 is None else w3.shape[1], epi, int(relu),
+        int(x.dtype == torch.bfloat16), _lib.stream()), "K7/K8 conv3x3")
+
+
+def _res_unit_cuda(v, base, w, bias):
+    B, H, W, C = v.shape
+    _check_act("v", v)
+    if base is not None:
+        _check_act("base", base, v.dtype)
+        if base.shape != v.shape:
+            raise ValueError(f"K7 needs base of v's shape; got {tuple(base.shape)}, "
+                             f"{tuple(v.shape)}")
+    if C % 128 or tuple(w.shape) != (2, 9, C, C) or tuple(bias.shape) != (2, C):
+        raise ValueError(f"K7 needs C % 128 == 0, taps (2, 9, C, C) and biases (2, C); "
+                         f"got v {tuple(v.shape)}, w {tuple(w.shape)}, b {tuple(bias.shape)}")
+    v = _lib.dense(v)
+    base = None if base is None else _lib.dense(base)
+    w = _lib.dense(w.to(v.dtype))
+    bias = bias.float().contiguous()
+    a = torch.empty_like(v)
+    out = torch.empty_like(v)
+    _conv(v, w[0], bias[0], a, EPI_ROUND, True)
+    _conv(a, w[1], bias[1], out, EPI_RESID, True, resid=v, base=base)
+    fused_res_unit.launches += 1
+    return out
+
+
+def _res_unit_forward(v, base, w, bias):
+    return _res_unit_cuda(v, base, w, bias) if v.is_cuda else res_unit_plain(v, base, w, bias)
+
+
+def fused_res_unit(v, unit, base=None):
+    """The DPT ResidualConvUnit v + conv2(relu(conv1(relu(v)))), plus `base`
+    when given (the fusion block's x + res1(skip)), through K7. unit: the
+    head's ((w1, b1), (w2, b2)) convs. Differentiable (autograd of the plain
+    version)."""
+    w, b = _unit_weights(unit, v.dtype)
+    return KernelWithTwin.apply(_res_unit_forward, res_unit_plain, v, base, w, b)
+
+
+def fused_fusion_pre(x, refinenet, skip=None):
+    """The conv-heavy prefix of the fusion block: res2(x + res1(skip)), or
+    res2(x) without a skip; the caller then resizes and applies out_conv."""
+    if skip is not None:
+        x = fused_res_unit(skip, refinenet["res1"], base=x)
+    return fused_res_unit(x, refinenet["res2"])
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_taps(n_in: int, n_out: int, round_bf16: bool):
+    """Each output's two source indices and weights, read from the
+    _interp_matrix row (its nonzeros; one index twice with weight 0 where
+    the row has one). Weights rounded to bf16 when `round_bf16`.
+    Returns (idx (n_out, 2) int32, wt (n_out, 2) fp32)."""
+    A = _interp_matrix(n_in, n_out, True)
+    if round_bf16:
+        A = torch.from_numpy(A).to(torch.bfloat16).float().numpy()
+    idx = np.zeros((n_out, 2), np.int32)
+    wt = np.zeros((n_out, 2), np.float32)
+    for o in range(n_out):
+        nz = np.nonzero(A[o])[0]
+        lo, hi = int(nz[0]), int(nz[-1])
+        idx[o] = lo, hi
+        wt[o] = A[o, lo], (A[o, hi] if hi != lo else 0.0)
+    return idx, wt
+
+
+def _head_weights(p1, p2, p3, dtype):
+    (w1, b1), (w2, b2), (w3, b3) = p1, p2, p3
+    return (_taps(w1).to(dtype), b1.float(), _taps(w2).to(dtype), b2.float(),
+            w3[:, :, 0, 0].t().float(), b3.float())
+
+
+def head_final_plain(x, w1, b1, w2, b2, w3, b3):
+    """Plain version of K8. w1 (9, C1, C2), w2 (9, C2, C2) taps in x's dtype;
+    w3 (C2, Cout) fp32; biases fp32. Returns (B, 2Hin, 2Win, Cout) fp32."""
+    B, Hin, Win, _ = x.shape
+    h1 = _conv_plain(x, w1, b1).to(x.dtype)
+    aw = torch.from_numpy(_interp_matrix(Win, 2 * Win, True)).to(x.device)
+    ah = torch.from_numpy(_interp_matrix(Hin, 2 * Hin, True)).to(x.device)
+    h1w = torch.einsum("ow,bhwc->bhoc", aw.to(x.dtype).float(), h1.float()).to(x.dtype)
+    h2 = torch.einsum("oh,bhwc->bowc", ah, h1w.float()).to(x.dtype)
+    a2 = torch.relu(_conv_plain(h2, w2, b2))
+    return a2 @ w3 + b3
+
+
+def _head_final_cuda(x, w1, b1, w2, b2, w3, b3):
+    B, Hin, Win, C1 = x.shape
+    C2, Cout = w1.shape[-1], w3.shape[-1]
+    _check_act("x", x)
+    if (C1 % 32 or C2 != 128 or tuple(w1.shape) != (9, C1, C2)
+            or tuple(w2.shape) != (9, C2, C2) or tuple(w3.shape) != (C2, Cout)
+            or not 1 <= Cout <= MAX_C3):
+        raise ValueError(f"K8 needs C1 % 32 == 0, 128 mid channels and 1..{MAX_C3} "
+                         f"outputs; got x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
+                         f"w2 {tuple(w2.shape)}, w3 {tuple(w3.shape)}")
+    dev, dt = x.device, x.dtype
+    x = _lib.dense(x)
+    w1, w2 = _lib.dense(w1.to(dt)), _lib.dense(w2.to(dt))
+    b1, b2, w3, b3 = (t.float().contiguous() for t in (b1, b2, w3, b3))
+    hidx, hwt = (torch.from_numpy(a).to(dev) for a in _interp_taps(Hin, 2 * Hin, False))
+    widx, wwt = (torch.from_numpy(a).to(dev)
+                 for a in _interp_taps(Win, 2 * Win, dt == torch.bfloat16))
+    h1 = torch.empty(B, Hin, Win, C2, device=dev, dtype=dt)
+    _conv(x, w1, b1, h1, EPI_ROUND, False)
+    h2 = torch.empty(B, 2 * Hin, 2 * Win, C2, device=dev, dtype=dt)
+    _lib.check(_lib.library().a3r_upsample2x(
+        h1.data_ptr(), h2.data_ptr(), hidx.data_ptr(), hwt.data_ptr(), widx.data_ptr(),
+        wwt.data_ptr(), B, Hin, Win, C2, int(dt == torch.bfloat16), _lib.stream()),
+        "K8 upsample")
+    out = torch.empty(B, 2 * Hin, 2 * Win, Cout, device=dev, dtype=torch.float32)
+    _conv(h2, w2, b2, out, EPI_HEAD, False, w3=w3, b3=b3)
+    fused_head_final.launches += 1
+    return out
+
+
+def fused_head_final(x, p1, p2, p3):
+    """The head tail conv3x3(p1) -> 2x align_corners resize ->
+    relu(conv3x3(p2)) -> fp32 conv1x1(p3) through K8. x (B, Hin, Win, C1);
+    p1..p3 the head's (weight, bias) convs (p3 fp32). Returns
+    (B, 2Hin, 2Win, Cout) fp32."""
+    ws = _head_weights(p1, p2, p3, x.dtype)
+    return _head_final_cuda(x, *ws) if x.is_cuda else head_final_plain(x, *ws)
+
+
+fused_res_unit.launches = 0
+fused_head_final.launches = 0

@@ -79,11 +79,7 @@ def _cuda(q, k, v):
     if D > 128 or D % 8:
         raise ValueError(f"K6 needs D <= 128 and D % 8 == 0; got D={D}")
 
-    def dense(t):   # contiguous, 16-byte aligned rows for cp.async
-        t = t.contiguous()
-        return t if t.data_ptr() % 16 == 0 else t.clone()
-
-    q, k, v = dense(q), dense(k), dense(v)
+    q, k, v = _lib.dense(q), _lib.dense(k), _lib.dense(v)
     o = torch.empty_like(q)
     _lib.check(_lib.library().a3r_small_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H, Nq, Nk,

@@ -1,11 +1,13 @@
 """Profile the port's fine-tuning micro-step on one GPU.
 
     python -m align3r_tpu_torch.tools.profile_train [--out build/train_profile.json]
+        [--hw 288 512]
 
 The step of ``chip_smoke.py``'s train phase, without the data loader: ViT-L
-(``Align3RConfig(img_size=(288, 512))``) from seeded random weights (final
-head convs scaled by 0.01), frozen encoder stored in bf16, 2 pairs of random
-288x512 inputs per micro-step, remat "full", fp32 heads, accum_iter 4. After
+(``Align3RConfig(img_size=hw)``, 288x512 by default; 512x512 is the step of
+its long phase, where every attention takes K9) from seeded random weights
+(final head convs scaled by 0.01), frozen encoder stored in bf16, 2 pairs of
+random inputs per micro-step, remat "full", fp32 heads, accum_iter 4. After
 4 warm micro-steps it times 4 more (one applied update) and reports:
 - ms per micro-step (host clock around synchronised work), and its split by
   CUDA events into forward (network + loss), backward, and the optimizer
@@ -29,6 +31,7 @@ import torch
 
 # first match wins: cuDNN's FFT convolutions run complex ("cf32") GEMMs
 KINDS = (("K6 small_attention", ("small_attention",)),
+         ("K9 flash_attention", ("flash_fwd", "flash_bwd")),
          ("convolution", ("conv", "implicit", "winograd", "fft", "cf32", "cudnn",
                           "dgrad", "wgrad")),
          ("matmul", ("gemm", "cutlass", "xmma", "sm90", "sm80", "cublas")),
@@ -48,12 +51,14 @@ def kind(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/train_profile.json")
+    ap.add_argument("--hw", type=int, nargs=2, default=(288, 512))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False")
         return 1
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
     from align3r_tpu_torch.models.config import Align3RConfig
+    from align3r_tpu_torch.ops import flash_attention as fa
     from align3r_tpu_torch.ops import small_attention as sa
     from align3r_tpu_torch.training import step as S
 
@@ -64,7 +69,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    H, W, B = 288, 512, 2
+    (H, W), B = args.hw, 2
     with torch.device(dev):
         model = init_align3r_(Align3R(Align3RConfig(img_size=(H, W))), seed=0)
     with torch.no_grad():
@@ -114,7 +119,9 @@ def main() -> int:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
 
-    sa.small_attention.launches = 0
+    counters = (sa.small_attention, fa.flash_attention, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
@@ -122,7 +129,7 @@ def main() -> int:
             micro_step(False)
         torch.cuda.synchronize()
         window = (time.perf_counter() - t1) * 1e3
-    k6 = sa.small_attention.launches / n
+    launches = {c.__name__: c.launches / n for c in counters}
     by_name, count = defaultdict(float), defaultdict(int)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
@@ -134,10 +141,10 @@ def main() -> int:
         by_kind[kind(name)] += t / n
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    res = {"card": card, "pairs": B, "ms_per_micro_step": ms,
+    res = {"card": card, "hw": [H, W], "pairs": B, "ms_per_micro_step": ms,
            "split_ms": {k: v / n for k, v in split.items()},
            "device_busy_share": busy / window, "kernels_per_micro_step":
-               sum(count.values()) / n, "k6_launches_per_micro_step": k6,
+               sum(count.values()) / n, "launches_per_micro_step": launches,
            "device_ms_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
            "top_kernels": [{"name": k[:120], "ms_per_micro_step": v / n,
                             "count": count[k] / n} for k, v in top],

@@ -43,10 +43,31 @@ final result line:
                 loss must be finite, trainable parameters must move, frozen
                 ones must stay bit-identical, and checkpoint-final.pth must
                 reload strictly.
-Then the card line as nvidia-smi prints it, one JSON line with the kernels
-(time, plain time, bound, launches on their path, library-call time), and
-last {"ok": true, "device": {...}}. The process fails if jax or the JAX
-package (align3r_tpu) was imported.
+  8. heads    - the serving engine with the pipeline DPT heads
+                (head_conv_impl="pipeline": K7 at every refinenet level, K8 at
+                the tail) on the main phase's 24 frames (190 pairs, batch
+                32), counters zeroed first: 84 K7 and 12 K8 launches, pts3d
+                and conf within a median relative difference of 1e-2 of the
+                default heads' in the same process (the two round bf16 at
+                other points per stage); engine pairs/s of both, warm; then
+                reconstruct_scene with inference_kw={"head_conv_impl":
+                "pipeline"} and finite outputs.
+  9. long     - the fine-tuning entry point at the config's own 512x512 (1024
+                tokens, so every attention takes K9, never K6): K9's gradient
+                against autograd of its plain forward, then train() at
+                Align3RConfig() on 8 synthetic 512x512 pairs, batch 2,
+                accum_iter 2, 1 epoch; per micro-step 80 K9 forwards (24
+                encoder, and 28 decoder and prior-branch attentions twice
+                under remat) and 28 K9 backwards (the encoder is frozen), 0
+                K6; finite losses, frozen weights bit-identical, trainable
+                ones moved, checkpoint-final.pth reloads strictly.
+The kernels phase also holds K7 (the four refinenet shapes, with and without
+a base), K8 (the head tail at the main path's shape, and fp32) and K9
+(forward and backward at the 512x512 training shapes, a ragged length, fp32
+and D = 128) to their plain versions. Then the card line as nvidia-smi
+prints it, one JSON line with the kernels (time, plain time, bound, launches
+on their path, library-call time), and last {"ok": true, "device": {...}}.
+The process fails if jax or the JAX package (align3r_tpu) was imported.
 """
 from __future__ import annotations
 
@@ -63,6 +84,7 @@ N_FRAMES, H, W = 24, 288, 512
 FLOW_FRAMES = 12
 BATCH = 32
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
+LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
@@ -276,6 +298,172 @@ def check_k5(dev, gen):
                          ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
                          library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by))
         del pi, pj, wi, wj, pk, wk, pp, wp, p_cat, w_cat
+    return rows
+
+
+def check_k7(dev, gen):
+    """K7 against its plain version at the pipeline heads' four refinenet
+    shapes (decode batch 32 at 512x288), bf16, without and with a base (the
+    fusion block's x + res1(skip)). Tolerance: 2 bf16 ulps of max|plain|
+    (1.6e-2 x max): both round each conv's fp32 sum plus bias to bf16 at the
+    same points, summed in another order. Beside it, the port's XLA-path
+    residual unit on the same inputs (the default head's chain: cuDNN
+    convolutions), the comparison later PRs need; no single PyTorch call
+    computes the unit."""
+    import torch
+    from align3r_tpu_torch.models.dpt_head import _residual_conv_unit
+    from align3r_tpu_torch.ops import dpt_pipeline as dp
+    torch.backends.cudnn.allow_tf32 = False
+    C = 256
+    rows = []
+    conv = lambda: ((torch.randn(C, C, 3, 3, generator=gen, device=dev) / (3 * C ** 0.5)).to(
+        torch.bfloat16), (0.1 * torch.randn(C, generator=gen, device=dev)).to(torch.bfloat16))
+    unit = (conv(), conv())
+    w, b = dp._unit_weights(unit, torch.bfloat16)
+    for hw in ((72, 128), (36, 64), (18, 32), (9, 16)):     # the largest share first
+        v, base = (torch.randn(BATCH, *hw, C, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+        for bs in (None, base):
+            kern = lambda: dp.fused_res_unit(v, unit, bs)
+            plain = lambda: dp.res_unit_plain(v, bs, w, b)
+            xla = ((lambda: _residual_conv_unit(unit, v)) if bs is None
+                   else (lambda: bs + _residual_conv_unit(unit, v)))
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, rel, scale = max_err(out, ref)
+            px = BATCH * hw[0] * hw[1]
+            act = px * C * 2
+            b_ms, b_by = bound(act * (3 if bs is not None else 2) + 2 * 9 * C * C * 2 + 2 * C * 4,
+                               2 * 2 * 9 * C * C * px, PEAK_BF16)
+            rows.append(dict(kernel="K7", shape=f"({BATCH}, {hw[0]}, {hw[1]}, {C}) bf16"
+                             f"{' + base' if bs is not None else ''}",
+                             max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+                             ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
+                             ms=cuda_time(kern, 10), plain_ms=cuda_time(plain, 2),
+                             library_ms=None, xla_chain_ms=cuda_time(xla, 10),
+                             bound_ms=b_ms, bound_by=b_by))
+            del out, ref
+        del v, base
+    return rows
+
+
+def check_k8(dev, gen):
+    """K8 against its plain version at the pipeline heads' tail (path1 of a
+    decode batch of 32 at 512x288: (32, 144, 256, 256) bf16 -> (32, 288, 512,
+    4) fp32), and at (4, 72, 128, 256) fp32. Tolerance: 2 bf16 ulps of
+    max|plain| in bf16 (h1, the column mix and the row mix are rounded at the
+    same points on both sides after fp32 sums in another order); 1e-4 x max
+    in fp32. Beside it, the port's XLA-path head tail on the same inputs (the
+    default head's chain); no single PyTorch call computes the tail."""
+    import torch
+    from align3r_tpu_torch.models import nn as L
+    from align3r_tpu_torch.ops import dpt_pipeline as dp
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    for shape, dt in (((BATCH, 144, 256, 256), torch.bfloat16),
+                      ((4, 72, 128, 256), torch.float32)):
+        B_, Hin, Win, C1 = shape
+        C2, Co = 128, 4
+        x = torch.randn(*shape, generator=gen, device=dev).to(dt)
+        p1 = ((torch.randn(C2, C1, 3, 3, generator=gen, device=dev) / (3 * C1 ** 0.5)).to(dt),
+              (0.1 * torch.randn(C2, generator=gen, device=dev)).to(dt))
+        p2 = ((torch.randn(C2, C2, 3, 3, generator=gen, device=dev) / (3 * C2 ** 0.5)).to(dt),
+              (0.1 * torch.randn(C2, generator=gen, device=dev)).to(dt))
+        p3 = (torch.randn(Co, C2, 1, 1, generator=gen, device=dev) / C2 ** 0.5,
+              0.1 * torch.randn(Co, generator=gen, device=dev))
+        ws = dp._head_weights(p1, p2, p3, dt)
+        kern = lambda: dp.fused_head_final(x, p1, p2, p3)
+        plain = lambda: dp.head_final_plain(x, *ws)
+
+        def xla():
+            h = L.conv2d(x, *p1, padding=1)
+            h = L.bilinear_resize(h, 2 * Hin, 2 * Win, align_corners=True)
+            h = torch.relu(L.conv2d(h, *p2, padding=1))
+            return L.conv2d(h.float(), *p3)
+
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        tol = (1.6e-2 if dt == torch.bfloat16 else 1e-4) * scale
+        isz = x.element_size()
+        px_in, px_out = B_ * Hin * Win, B_ * 4 * Hin * Win
+        ops16 = 2 * 9 * C1 * C2 * px_in + 2 * 9 * C2 * C2 * px_out + 4 * 2 * C2 * px_out
+        ops32 = 2 * C2 * Co * px_out
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+        t_ops = (ops16 / peak + ops32 / PEAK_FP32) * 1e3
+        t_bytes = (px_in * C1 * isz + px_out * Co * 4 + 9 * (C1 + C2) * C2 * isz) / HBM_BYTES_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        rows.append(dict(kernel="K8", shape=f"{tuple(shape)} {'bf16' if isz == 2 else 'fp32'}"
+                         f" -> ({B_}, {2 * Hin}, {2 * Win}, {Co}) fp32",
+                         max_abs_err=err, max_rel_err=rel, tol=tol,
+                         ok=err <= tol and torch.isfinite(out).all().item(),
+                         ms=cuda_time(kern, 5), plain_ms=cuda_time(plain, 2, warmup=1),
+                         library_ms=None, xla_chain_ms=cuda_time(xla, 5),
+                         bound_ms=b_ms, bound_by=b_by))
+        del x, out, ref
+    return rows
+
+
+def check_k9(dev, gen):
+    """K9's forward and backward against their plain versions at the 512x512
+    training shapes (the encoder's 4 images x 16 heads, the decoder's and
+    prior branch's 4 x 12 heads, 1024 tokens, D = 64, bf16), a ragged length
+    (1000), fp32, and D = 128. The backward is held on the same (o, lse, dO).
+    Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max) in bf16: both round P
+    against the same running max over the same 64-key blocks (and P, dS to
+    bf16 in the backward), summed in another order; 1e-4 x max in fp32.
+    Beside each, scaled_dot_product_attention on the same inputs (forward;
+    and its backward alone, timed on a retained graph), which the port never
+    calls."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import flash_attention as fa
+    rows = []
+    for name, shape, dt in (("encoder", (4, 16, 1024, 64), torch.bfloat16),
+                            ("decoder / prior", (4, 12, 1024, 64), torch.bfloat16),
+                            ("ragged", (4, 16, 1000, 64), torch.bfloat16),
+                            ("fp32", (4, 16, 1024, 64), torch.float32),
+                            ("D=128", (4, 8, 1024, 128), torch.bfloat16)):
+        q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(dt) for _ in range(4))
+        (o, lse), (ro, rlse) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_plain(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do)
+        refs = fa.flash_attention_bwd_plain(q, k, v, ro, rlse, do)
+        torch.cuda.synchronize()
+        rel_tol = 1.6e-2 if dt == torch.bfloat16 else 1e-4
+        ef = max_err(o, ro)
+        eb = [max_err(a, r) for a, r in zip(grads, refs)]
+        ok_f = ef[0] <= rel_tol * ef[2] and torch.isfinite(o.float()).all().item()
+        ok_b = all(e[0] <= rel_tol * e[2] for e in eb) and all(
+            torch.isfinite(a.float()).all().item() for a in grads)
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs)
+        B_, H_, N_, D_ = shape
+        isz = q.element_size()
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+        heads = B_ * H_
+        fb_ms, fb_by = bound(4 * heads * N_ * D_ * isz + heads * N_ * 4,
+                             4 * heads * N_ * N_ * D_, peak)
+        # the backward's five products: S, dP, dV, dK, dQ
+        bb_ms, bb_by = bound(8 * heads * N_ * D_ * isz + heads * N_ * 4,
+                             10 * heads * N_ * N_ * D_, peak)
+        tag = f"{name} {tuple(shape)} {'bf16' if isz == 2 else 'fp32'}"
+        rows.append(dict(kernel="K9", shape=tag, max_abs_err=ef[0], max_rel_err=ef[1],
+                         tol=rel_tol * ef[2], ok=ok_f,
+                         ms=cuda_time(lambda: fa.flash_attention_fwd(q, k, v), 20),
+                         plain_ms=cuda_time(lambda: fa.flash_attention_plain(q, k, v), 3),
+                         library_ms=cuda_time(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+                         bound_ms=fb_ms, bound_by=fb_by))
+        rows.append(dict(kernel="K9 bwd", shape=tag, max_abs_err=max(e[0] for e in eb),
+                         max_rel_err=max(e[1] for e in eb),
+                         tol=f"{rel_tol} x max (dq {eb[0][2]:.3g}, dk {eb[1][2]:.3g}, "
+                             f"dv {eb[2][2]:.3g})", ok=ok_b,
+                         ms=cuda_time(lambda: fa.flash_attention_bwd(q, k, v, ro, rlse, do), 10),
+                         plain_ms=cuda_time(
+                             lambda: fa.flash_attention_bwd_plain(q, k, v, ro, rlse, do), 3),
+                         library_ms=cuda_time(lambda: torch.autograd.grad(
+                             so, (qs, ks, vs), do, retain_graph=True), 10),
+                         bound_ms=bb_ms, bound_by=bb_by))
+        del q, k, v, do, o, ro, grads, refs, so, qs, ks, vs
     return rows
 
 
@@ -670,18 +858,19 @@ def check_grads(dev, gen):
 
 
 class SyntheticPairs:
-    """An in-memory two-view training set at 288x512: per pair a smooth
-    synthetic depth for each view, cam2world poses a small motion apart,
-    world points from the depth through a 500 px pinhole, images in [-1, 1],
-    and the prior pointcloud from a perturbed depth (pixel_to_pointcloud).
-    The dataset object the port's get_data_loader takes."""
+    """An in-memory two-view training set at hw (288x512 by default): per
+    pair a smooth synthetic depth for each view, cam2world poses a small
+    motion apart, world points from the depth through a 500 px pinhole,
+    images in [-1, 1], and the prior pointcloud from a perturbed depth
+    (pixel_to_pointcloud). The dataset object the port's get_data_loader
+    takes."""
 
-    resolutions = [(W, H)]
-
-    def __init__(self, n, seed=0):
+    def __init__(self, n, seed=0, hw=(H, W)):
         import numpy as np
         import torch
         from align3r_tpu_torch.geometry.core import pixel_to_pointcloud
+        H, W = hw
+        self.resolutions = [(W, H)]
         rng = np.random.default_rng(seed)
         yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
         self.items = []
@@ -718,22 +907,25 @@ class SyntheticPairs:
         return self.items[idx[0] if isinstance(idx, tuple) else idx]
 
 
-def train_path(dev):
-    """The fine-tuning driver at ViT-L width (see the module docstring)."""
+def run_train(dev, tag, hw, n_pairs, accum, epochs, counters):
+    """train() at ViT-L width (Align3RConfig at `hw`) with the reference
+    per-GPU recipe (batch 2, remat full, frozen encoder in bf16, fp32 heads)
+    over SyntheticPairs(n_pairs), from a seeded random start checkpoint. The
+    counters are zeroed right before the call. Returns (launches, checks,
+    stats): finite losses, trainable parameters moved, frozen ones
+    bit-identical, checkpoint-final.pth reloading strictly, the applied
+    updates; warm ms per micro-step and peak memory."""
     import math
     import torch
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
     from align3r_tpu_torch.models.config import Align3RConfig
-    from align3r_tpu_torch.ops import edge_loss as el
-    from align3r_tpu_torch.ops import fused_site as fs
-    from align3r_tpu_torch.ops import small_attention as sa
     from align3r_tpu_torch.training.step import is_trainable
     from align3r_tpu_torch.training.train import (TrainArgs, export_torch_checkpoint,
                                                   train)
 
     t0 = time.perf_counter()
-    cfg = Align3RConfig(img_size=(H, W))     # VIT_L_512 at the 288x512 recipe size
-    ds = SyntheticPairs(TRAIN_PAIRS)
+    cfg = Align3RConfig(img_size=hw)
+    ds = SyntheticPairs(n_pairs, hw=hw)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
         # the recipe starts from a checkpoint: one from seeded random weights,
@@ -747,17 +939,15 @@ def train_path(dev):
         export_torch_checkpoint(pretrained, start)
         del start
         torch.cuda.empty_cache()
-        print(f"train: data + start checkpoint in {time.perf_counter() - t0:.1f} s",
+        print(f"{tag}: data + start checkpoint in {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        args = TrainArgs(model="Align3RConfig(img_size=(288, 512))", pretrained=pretrained,
-                         train_dataset=ds, batch_size=TRAIN_BATCH, accum_iter=ACCUM,
-                         epochs=TRAIN_EPOCHS, warmup_epochs=0, num_workers=2,
-                         output_dir=out, save_freq=TRAIN_EPOCHS, keep_freq=10 ** 6,
+        args = TrainArgs(model=f"Align3RConfig(img_size={tuple(hw)})", pretrained=pretrained,
+                         train_dataset=ds, batch_size=TRAIN_BATCH, accum_iter=accum,
+                         epochs=epochs, warmup_epochs=0, num_workers=2,
+                         output_dir=out, save_freq=epochs, keep_freq=10 ** 6,
                          print_freq=4, remat="full", cast_frozen=True, head_bf16=False,
                          device=str(dev))
-        counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd,
-                    el.edge_loss_bwd, sa.small_attention)
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
@@ -768,7 +958,7 @@ def train_path(dev):
         launches = {c.__name__: c.launches for c in counters}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         steps = len(res.history)
-        print(f"train: {steps} micro-steps, {res.optimizer.count} applied updates in "
+        print(f"{tag}: {steps} micro-steps, {res.optimizer.count} applied updates in "
               f"{wall:.1f} s, launches {json.dumps(launches)}", flush=True)
 
         start_sd = torch.load(pretrained, map_location=dev, weights_only=True)["model"]
@@ -791,13 +981,12 @@ def train_path(dev):
         del sd, fresh
     losses = [h["loss"] for h in res.history]
     checks = {
-        "losses_finite": len(losses) == TRAIN_EPOCHS * TRAIN_PAIRS // TRAIN_BATCH
+        "losses_finite": len(losses) == epochs * n_pairs // TRAIN_BATCH
         and all(math.isfinite(x) for x in losses),
-        "k6_80_per_micro_step": launches["small_attention"] == 80 * steps,
         "trainable_moved": all(moved[g] > 0 for g in total),
         "frozen_bit_identical": not frozen_bad,
         "final_pth_reloads_strict": reload_ok,
-        "applied_updates": res.optimizer.count == steps // ACCUM >= 2,
+        "applied_updates": res.optimizer.count == steps // accum >= 2,
     }
     warm = res.log[-1]
     ms_step = warm["train_s"] / warm["steps"] * 1e3
@@ -805,14 +994,141 @@ def train_path(dev):
              "loss_first": losses[0], "loss_last": losses[-1],
              "warm_ms_per_micro_step": ms_step,
              "train_pairs_per_s": TRAIN_BATCH / ms_step * 1e3,
-             "peak_mem_gb": peak, "k6_launches_per_micro_step": launches["small_attention"] / steps,
-             "moved_tensors": moved, "trainable_tensors": total,
+             "peak_mem_gb": peak, "moved_tensors": moved, "trainable_tensors": total,
              "frozen_changed": frozen_bad[:5]}
+    return launches, checks, stats
+
+
+def train_path(dev):
+    """train() at ViT-L width on 288x512 pairs (see the module docstring)."""
+    from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+
+    counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd,
+                el.edge_loss_bwd, sa.small_attention)
+    launches, checks, stats = run_train(dev, "train", (H, W), TRAIN_PAIRS, ACCUM,
+                                        TRAIN_EPOCHS, counters)
+    steps = stats["micro_steps"]
+    checks["k6_80_per_micro_step"] = launches["small_attention"] == 80 * steps
+    stats["k6_launches_per_micro_step"] = launches["small_attention"] / steps
     print(f"train: checks {json.dumps(checks)}", flush=True)
     print(f"train: stats {json.dumps(stats)}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"train path checks failed: {checks}")
     return launches, stats
+
+
+# ----------------------------------------------------------------- phase 9
+
+def check_k9_grad(dev, gen):
+    """K9's gradient (the kernel's forward and backward through the autograd
+    Function) against autograd of its plain forward at (4, 12, 1024, 64)
+    bf16. The kernel rounds P and dS to bf16 before their products, autograd
+    of the plain forward carries them in fp32: tolerance 2 bf16 ulps of the
+    largest gradient (1.6e-2 x max)."""
+    import torch
+    from align3r_tpu_torch.ops import flash_attention as fa
+    leaves = [torch.randn(4, 12, 1024, 64, generator=gen, device=dev).to(torch.bfloat16)
+              .requires_grad_(True) for _ in range(3)]
+    g = torch.randn(4, 12, 1024, 64, generator=gen, device=dev).to(torch.bfloat16)
+    got = torch.autograd.grad(fa.flash_attention(*leaves), leaves, g)
+    ref = torch.autograd.grad(fa.flash_attention_plain(*leaves)[0], leaves, g)
+    out = {f"d{n}": max_err(a, b)[1] for n, a, b in zip("qkv", got, ref)}
+    if not all(v <= 1.6e-2 for v in out.values()):
+        raise AssertionError(f"K9 gradient out of tolerance: {out}")
+    return out
+
+
+def long_path(dev):
+    """train() at the config's own 512x512 (see the module docstring)."""
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import flash_attention as fa
+    from align3r_tpu_torch.ops import small_attention as sa
+
+    counters = (fa.flash_attention, fa.flash_attention_bwd, sa.small_attention,
+                fs.attention_site, fs.mlp_site)
+    launches, checks, stats = run_train(dev, "long", LONG_HW, LONG_PAIRS, LONG_ACCUM, 1,
+                                        counters)
+    steps = stats["micro_steps"]
+    checks["k9_fwd_80_per_micro_step"] = launches["flash_attention"] == 80 * steps
+    checks["k9_bwd_28_per_micro_step"] = launches["flash_attention_bwd"] == 28 * steps
+    checks["k6_0"] = launches["small_attention"] == 0
+    stats["k9_launches_per_micro_step"] = {k: launches[k] / steps for k in (
+        "flash_attention", "flash_attention_bwd")}
+    print(f"long: checks {json.dumps(checks)}", flush=True)
+    print(f"long: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"512x512 training checks failed: {checks}")
+    return launches, stats
+
+
+# ----------------------------------------------------------------- phase 8
+
+def heads_path(dev, pm, imgs, priors):
+    """The serving engine with the pipeline DPT heads (see the module
+    docstring) on the main phase's model and frames."""
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.ops import dpt_pipeline as dp
+    from align3r_tpu_torch.pipeline import reconstruct_scene
+
+    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    counters = (dp.fused_res_unit, dp.fused_head_final)
+    out, launches, secs = {}, {}, {}
+    for impl in ("xla", "pipeline"):
+        for c in counters:
+            c.launches = 0
+        out[impl] = inference(pairs, pm, imgs, priors, batch_size=BATCH, head_conv_impl=impl)
+        torch.cuda.synchronize()
+        launches[impl] = {c.__name__: c.launches for c in counters}
+    for impl in ("xla", "pipeline", "pipeline", "xla"):    # warm, in turns
+        t0 = time.perf_counter()
+        inference(pairs, pm, imgs, priors, batch_size=BATCH, head_conv_impl=impl)
+        torch.cuda.synchronize()
+        secs.setdefault(impl, []).append(time.perf_counter() - t0)
+    print(f"heads: launches {json.dumps(launches)}", flush=True)
+
+    def med_rel(a, b):   # median |a - b| / (|b| + 1e-3), as the JAX head tests
+        a, b = a.float(), b.float()
+        return ((a - b).abs() / (b.abs() + 1e-3)).median().item()
+
+    diffs = {f"{k}.{v}": med_rel(out["pipeline"][k][v], out["xla"][k][v])
+             for k, v in (("pred1", "pts3d"), ("pred1", "conf"),
+                          ("pred2", "pts3d_in_other_view"), ("pred2", "conf"))}
+    finite = all(torch.isfinite(out["pipeline"][k][v]).all().item()
+                 for k in ("pred1", "pred2") for v in out["pipeline"][k])
+    del out
+    torch.cuda.empty_cache()
+    kw = dict(scene_graph="swinstride-5-noncyclic", batch_size=BATCH, variant="flow",
+              niter=300, schedule="linear", lr=0.01,
+              scene_kw=dict(shared_focal=True, temporal_smoothing_weight=0.01,
+                            translation_weight=1.0, flow_loss_weight=0.0,
+                            flow_loss_start_epoch=0.1, flow_loss_thre=25, min_conf_thr=1.1))
+    res = reconstruct_scene(imgs, priors, pm, inference_kw={"head_conv_impl": "pipeline"}, **kw)
+    torch.cuda.synchronize()
+    checks = {
+        "k7_84": launches["pipeline"]["fused_res_unit"] == 84,
+        "k8_12": launches["pipeline"]["fused_head_final"] == 12,
+        "xla_heads_launch_neither": sum(launches["xla"].values()) == 0,
+        "outputs_finite": finite,
+        "median_rel_diff_1e-2": all(d <= 1e-2 for d in diffs.values()),
+        "scene_finite": bool(np.isfinite(res.losses).all()
+                             and all(np.isfinite(a).all() for a in (
+                                 res.get_im_poses(), res.get_focals(), res.get_depthmaps()))),
+    }
+    stats = {"pairs": len(pairs), "launches": launches["pipeline"],
+             "median_rel_diff_vs_xla_heads": diffs,
+             "engine_s": {k: v for k, v in secs.items()},
+             "pairs_per_s": {k: len(pairs) / min(v) for k, v in secs.items()},
+             "scene_timings_s": res.timings}
+    print(f"heads: checks {json.dumps(checks)}", flush=True)
+    print(f"heads: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"pipeline-head checks failed: {checks}")
+    return launches["pipeline"], stats
 
 
 def main() -> int:
@@ -840,7 +1156,8 @@ def main() -> int:
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)
-        rows = check_sites(dev, gen) + check_edge(dev, gen) + check_k5(dev, gen)
+        rows = (check_sites(dev, gen) + check_edge(dev, gen) + check_k5(dev, gen)
+                + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen))
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
         bad = [r for r in rows if not r["ok"]]
@@ -858,6 +1175,10 @@ def main() -> int:
 
         phase = "flow"
         flow_launches, flow_stats = flow_path(dev, pm, imgs, priors)
+        torch.cuda.empty_cache()
+
+        phase = "heads"
+        heads_launches, heads_stats = heads_path(dev, pm, imgs, priors)
         del pm
         torch.cuda.empty_cache()
 
@@ -877,6 +1198,12 @@ def main() -> int:
         print(f"train: K6 {k6_ms:.3f} ms per micro-step, "
               f"{100 * train_stats['k6_share_est']:.1f}% of it", flush=True)
         rows += k6_rows
+        torch.cuda.empty_cache()
+
+        phase = "long"
+        print("long: K9 gradient " + json.dumps(check_k9_grad(dev, gen)), flush=True)
+        torch.cuda.empty_cache()
+        long_launches, long_stats = long_path(dev)
     except Exception:
         traceback.print_exc()
         return fail(phase, "exception (traceback above)")
@@ -893,11 +1220,21 @@ def main() -> int:
         "K5": ("permute_packed", src + "permute_packed.cu", "align3r_tpu/ops/edge_loss.py:417"),
         "K6": ("small_attention", src + "small_attention.cu",
                "align3r_tpu/ops/small_attention.py:47"),
+        "K7": ("fused_res_unit", src + "dpt_pipeline.cu",
+               "align3r_tpu/ops/dpt_pipeline.py:101"),
+        "K8": ("fused_head_final", src + "dpt_pipeline.cu",
+               "align3r_tpu/ops/dpt_pipeline.py:319"),
+        "K9": ("flash_attention", src + "flash_attention.cu",
+               "align3r_tpu/ops/attention.py:44"),
+        "K9 bwd": ("flash_attention_bwd", src + "flash_attention.cu",
+                   "align3r_tpu/ops/attention.py:44"),
     }
+    paths = {"K5": flow_launches, "K6": train_launches, "K7": heads_launches,
+             "K8": heads_launches, "K9": long_launches, "K9 bwd": long_launches}
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
-        path = {"K5": flow_launches, "K6": train_launches}.get(k, launches)
+        path = paths.get(k, launches)
         kernels.append({"name": f"{k} {fn}", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": path[fn],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -907,10 +1244,12 @@ def main() -> int:
                         "shape": mine[0]["shape"],
                         "checks": [{k2: r.get(k2) for k2 in (
                             "shape", "ms", "ms_unsorted", "plain_ms", "library_ms",
-                            "bound_ms", "bound_by", "max_abs_err")} for r in mine]})
+                            "xla_chain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                                   for r in mine]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
-                      "train_path": train_stats}), flush=True)
+                      "train_path": train_stats, "heads_path": heads_stats,
+                      "long_path": long_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

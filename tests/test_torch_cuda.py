@@ -11,17 +11,24 @@ edges: token counts that are not a multiple of the 64-row attention tile or
 the 128-row GEMM tile, pixel counts that are not a multiple of the 1024-pixel
 edge-loss tile, and an image with no edge terms; for K6, query and key
 counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
-padded in shared memory (8, 40, 128). Tolerances as in chip_smoke.py: 2 bf16
-ulps of the largest output for K1/K2/K6 in bf16, 1e-4 of the largest value
-for K3/K4 and for K6 in fp32 (fp32 arithmetic, other sum order). The
+padded in shared memory (8, 40, 128); for K9, sequence lengths that are not
+a multiple of its 64- or 32-row tiles at every head dim it takes; for K7 and
+K8, pixel counts that are not a multiple of the 128-pixel conv tile.
+Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
+K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
+same points after fp32 sums in another order), 1e-4 of the largest value
+for K3/K4 and for K6-K9 in fp32 (fp32 arithmetic, other sum order). The
 gradients of K6 and of the differentiable K1/K2 sites are autograd of their
 plain twins on the card, so they are held to those twins' autograd at 1e-5.
+Convolutions of the plain versions run without TF32.
 """
 import numpy as np
 import pytest
 import torch
 
+from align3r_tpu_torch.ops import dpt_pipeline as dp
 from align3r_tpu_torch.ops import edge_loss as el
+from align3r_tpu_torch.ops import flash_attention as fa
 from align3r_tpu_torch.ops import fused_site as fs
 from align3r_tpu_torch.ops import small_attention as sa
 from align3r_tpu_torch.models.rope import make_grid_positions
@@ -268,13 +275,15 @@ def test_diff_sites_on_the_card(dev):
         assert (a.float() - r.float()).abs().max().item() <= 1e-5 * r.float().abs().max().item()
 
 
-def _tiny_model(dev):
+def _tiny_model(dev, hw=(128, 256)):
     """A small Align3R whose attentions take the card's routes: 128 tokens
-    (128 x 256 images), D = 64 heads, C % 128 == 0 for K1/K2."""
+    (128 x 256 images; 1024 at 512 x 512), D = 64 heads, C % 128 == 0 for
+    K1/K2."""
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
     from align3r_tpu_torch.models.config import Align3RConfig
     from align3r_tpu_torch.training import step as S
-    cfg = Align3RConfig(img_size=(128, 256), enc_embed_dim=128, enc_depth=2,
+    H, W = hw
+    cfg = Align3RConfig(img_size=hw, enc_embed_dim=128, enc_depth=2,
                         enc_num_heads=2, dec_embed_dim=128, dec_depth=8, dec_num_heads=2)
     with torch.device(dev):
         model = init_align3r_(Align3R(cfg), seed=0)
@@ -288,11 +297,11 @@ def _tiny_model(dev):
 
     def view():
         pose = torch.eye(4, device=dev).expand(1, 4, 4).clone()
-        return {"img": torch.rand(1, 128, 256, 3, generator=g, device=dev) * 2 - 1,
-                "pred_depth": torch.rand(1, 128, 256, 3, generator=g, device=dev),
-                "pts3d": torch.randn(1, 128, 256, 3, generator=g, device=dev) + 3,
+        return {"img": torch.rand(1, H, W, 3, generator=g, device=dev) * 2 - 1,
+                "pred_depth": torch.rand(1, H, W, 3, generator=g, device=dev),
+                "pts3d": torch.randn(1, H, W, 3, generator=g, device=dev) + 3,
                 "camera_pose": pose,
-                "valid_mask": torch.rand(1, 128, 256, generator=g, device=dev) > 0.1}
+                "valid_mask": torch.rand(1, H, W, generator=g, device=dev) > 0.1}
     return model, {"view1": view(), "view2": view()}
 
 
@@ -339,3 +348,109 @@ def test_fused_training_route_on_the_card(dev):
     flat = lambda gs: torch.cat([g.float().flatten() for g in gs if g is not None])
     ref = flat(out["xla"][1])
     assert (flat(out["fused"][1]) - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+
+
+def _close(out, ref, dtype):
+    tol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
+    assert torch.isfinite(out.float()).all()
+    d = (out.float() - ref.float()).abs().max().item()
+    assert d <= tol * ref.float().abs().max().item(), d
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 3, 130, 64), (1, 2, 1000, 64), (1, 2, 77, 128),
+                                   (1, 1, 200, 256), (2, 1, 40, 64)])
+def test_flash_attention_kernels(dev, dtype, shape):
+    """K9's forward (o and the log-sum-exp) and backward against their plain
+    versions on the same inputs, and the autograd Function through both."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, ro, dtype)
+    assert (lse - rlse).abs().max().item() <= 1e-5 * rlse.abs().max().item()
+    grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do)
+    refs = fa.flash_attention_bwd_plain(q, k, v, ro, rlse, do)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, refs):
+        assert a.dtype == dtype
+        _close(a, r, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention(*leaves).backward(do)
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_flash_attention_refuses_unsupported(dev):
+    x = torch.zeros(1, 1, 64, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D in"):
+        fa.flash_attention_fwd(x, x, x)
+    y = torch.zeros(1, 1, 64, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        fa.flash_attention_fwd(y, y, y)
+
+
+def _unit(g, dev, C):
+    conv = lambda: (torch.randn(C, C, 3, 3, generator=g, device=dev) / (3 * C ** 0.5),
+                    0.1 * torch.randn(C, generator=g, device=dev))
+    return conv(), conv()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 9, 16, 256), (1, 7, 11, 128)])
+def test_res_unit_kernel(dev, dtype, shape):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(11)
+    v, base = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(2))
+    unit = _unit(g, dev, shape[-1])
+    w, b = dp._unit_weights(unit, dtype)
+    for bs in (None, base):
+        before = dp.fused_res_unit.launches
+        out = dp.fused_res_unit(v, unit, bs)
+        assert dp.fused_res_unit.launches == before + 1 and out.dtype == dtype
+        ref = dp.res_unit_plain(v, bs, w, b)
+        torch.cuda.synchronize()
+        _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 12, 20, 256), (1, 8, 16, 128)])
+def test_head_final_kernel(dev, dtype, shape):
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    C1 = shape[-1]
+    p1 = (torch.randn(128, C1, 3, 3, generator=g, device=dev) / (3 * C1 ** 0.5),
+          0.1 * torch.randn(128, generator=g, device=dev))
+    p2 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / (3 * 128 ** 0.5),
+          0.1 * torch.randn(128, generator=g, device=dev))
+    p3 = (torch.randn(4, 128, 1, 1, generator=g, device=dev) / 128 ** 0.5,
+          0.1 * torch.randn(4, generator=g, device=dev))
+    before = dp.fused_head_final.launches
+    out = dp.fused_head_final(x, p1, p2, p3)
+    assert dp.fused_head_final.launches == before + 1
+    ref = dp.head_final_plain(x, *dp._head_weights(p1, p2, p3, dtype))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (shape[0], 2 * shape[1], 2 * shape[2], 4)
+    _close(out, ref, dtype)
+
+
+def test_512x512_training_forward_takes_k9(dev):
+    """At 512 x 512 (1024 tokens, D = 64, bf16) every attention of the
+    training forward fails K6's gate and launches K9: 20 forwards (2 encoder,
+    16 decoder, 2 prior blocks) plus the 18 recomputed under full remat, and
+    18 backwards (the encoder is frozen); K6 never launches."""
+    from align3r_tpu_torch.training import step as S
+    model, batch = _tiny_model(dev, (512, 512))
+    params = [p for p in model.parameters() if p.requires_grad]
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+              sa.small_attention.launches)
+    loss, _ = S.loss_fn(model, batch, remat="full")
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention.launches, fa.flash_attention_bwd.launches,
+             sa.small_attention.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (38, 18, 0)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads if g is not None)

@@ -115,8 +115,8 @@ def test_dispatch_routes():
     np.testing.assert_array_equal(tattn.attention(q, k, v, "small").numpy(),
                                   tsa.small_attention_plain(q, k, v).numpy())
     assert tsa.small_attention.launches == before
-    with pytest.raises(NotImplementedError, match="K9"):
-        tattn.attention(q, k, v, "flash")
+    # "flash" off the card is the XLA path, as JAX's is off the TPU
+    _close(tattn.attention(q, k, v, "flash").numpy(), jref, 1e-5)
     with pytest.raises(ValueError):
         tattn.attention(q, k, v, "nope")
     # the route a CUDA tensor takes, decided on the shapes alone
