@@ -24,18 +24,28 @@
 // What bounds it on the H100: at the 512x512 training shapes (4, 16, 1024, 64)
 // the forward does 4 * 64 * 1024^2 * 64 = 17.2 GFLOP against 33.6 MB of q, k,
 // v and o: 17 us of bf16 tensor-core time against 10 us of memory, so
-// operations bound it; the backward does 2.5x the operations. The (N, N)
-// scores never reach device memory.
+// operations bound it. Its 67 M exponentials take about as long again on the
+// SMs' 16-per-clock exp units, so the softmax has to overlap the products.
+// The backward does 2.5x the operations. The (N, N) scores never reach
+// device memory.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work): 4 warps per block. Every product is a set of 16 x 16 output
-// tiles accumulated in fp32 in shared memory by one warp (warp_tile below):
-// WMMA bf16 -> fp32 for bf16 inputs, scalar FMA in fp32 without TF32 for
-// fp32 inputs, as K6's fp32 path. Tiles are staged with 16-byte cp.async.
-// Tile sizes per (dtype, D) are chosen in Tiles<T, D> so the shared
-// memory stays within the 227 KB a block may opt in to; D = 256 takes
-// smaller key or query tiles, with cudaFuncSetAttribute opting in above 48 KB.
+// Design:
+//   bf16 forward: the warpgroup-MMA core of sm90_attention.cuh (ONLINE
+//     policy): TMA-fed K/V ring, S and O in registers, P to the second
+//     product from registers, BK = 128 keys at D = 64 (64 at D = 128 and 256,
+//     where O's registers and the tiles' shared memory leave no room for
+//     128). Up to 3 blocks share an SM, so one block's softmax overlaps
+//     another's products.
+//   fp32 forward and the backward (simple and right first; their redesign is
+//     later work): 4 warps per block; every product is a set of 16 x 16
+//     output tiles accumulated in fp32 in shared memory by one warp
+//     (warp_tile below): WMMA bf16 -> fp32 for bf16 inputs, scalar FMA in
+//     fp32 without TF32 for fp32 inputs, as K6's fp32 path. Tiles are staged
+//     with 16-byte cp.async, sized per (dtype, D) in Tiles<T, D> so the
+//     shared memory stays within the 227 KB a block may opt in to; D = 256
+//     takes smaller key or query tiles.
 #include "common.cuh"
+#include "sm90_attention.cuh"
 
 #include <mma.h>
 
@@ -125,49 +135,58 @@ __device__ __forceinline__ void store_rows(T* dst, const float* src, int ld, int
   }
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------- bf16 forward
 
-template <typename T, int D, int BK>
+// the ONLINE policy of sm90_attention.cuh (Nq == Nk == N); MINB blocks per SM
+template <int D, int BK, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+               float* __restrict__ lse, int Nq, int Nk, int Dv, float scale_log2) {
+  sm90::attention_fwd<D, BK, false>(tq, tk, tv, o, lse, Nq, Nk, Dv, scale_log2);
+}
+
+// ------------------------------------------------------- fp32 forward
+
+template <int D, int BK>
 struct FwdLayout {
   static constexpr int BQ = 64;                     // 4 warps x 16 query rows
-  static constexpr int PADT = 16 / sizeof(T);
-  static constexpr int LDT = D + PADT;              // Q, K, V rows (T)
-  static constexpr int LDS = BK + 4;                // S rows (fp32)
-  static constexpr int LDP = BK + PADT;             // P rows (T)
-  static constexpr int LDO = D + 4;                 // O rows (fp32)
+  static constexpr int LDT = D + 4;                 // Q, K, V rows
+  static constexpr int LDS = BK + 4;                // S, P rows
+  static constexpr int LDO = D + 4;                 // O rows
   static constexpr int Q = 0;
-  static constexpr int K = align128(Q + BQ * LDT * (int)sizeof(T));
-  static constexpr int V = align128(K + BK * LDT * (int)sizeof(T));
-  static constexpr int S = align128(V + BK * LDT * (int)sizeof(T));
+  static constexpr int K = align128(Q + BQ * LDT * 4);
+  static constexpr int V = align128(K + BK * LDT * 4);
+  static constexpr int S = align128(V + BK * LDT * 4);
   static constexpr int P = align128(S + BQ * LDS * 4);
-  static constexpr int O = align128(P + BQ * LDP * (int)sizeof(T));
+  static constexpr int O = align128(P + BQ * LDS * 4);
   static constexpr int L = align128(O + BQ * LDO * 4);
   static constexpr int BYTES = L + BQ * 4;
   static_assert(BYTES <= SMEM_MAX, "forward tiles exceed shared memory");
 };
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, float* __restrict__ lse, int N, float scale) {
-  using Lay = FwdLayout<T, D, BK>;
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int N, float scale) {
+  using Lay = FwdLayout<D, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + Lay::Q);
-  T* Ks = reinterpret_cast<T*>(smem + Lay::K);
-  T* Vs = reinterpret_cast<T*>(smem + Lay::V);
+  float* Qs = reinterpret_cast<float*>(smem + Lay::Q);
+  float* Ks = reinterpret_cast<float*>(smem + Lay::K);
+  float* Vs = reinterpret_cast<float*>(smem + Lay::V);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* Sw = reinterpret_cast<float*>(smem + Lay::S) + warp * 16 * Lay::LDS;
-  T* Pw = reinterpret_cast<T*>(smem + Lay::P) + warp * 16 * Lay::LDP;
+  float* Pw = reinterpret_cast<float*>(smem + Lay::P) + warp * 16 * Lay::LDS;
   float* Ow = reinterpret_cast<float*>(smem + Lay::O) + warp * 16 * Lay::LDO;
   float* Lw = reinterpret_cast<float*>(smem + Lay::L) + warp * 16;
-
   const size_t bh = blockIdx.x;
   const int q0 = blockIdx.y * Lay::BQ;
-  const T* qb = q + bh * N * D;
-  const T* kb = k + bh * N * D;
-  const T* vb = v + bh * N * D;
+  const float* qb = q + bh * N * D;
+  const float* kb = k + bh * N * D;
+  const float* vb = v + bh * N * D;
 
-  load_rows<T, D>(Qs, Lay::LDT, qb, q0, Lay::BQ, N);
+  load_rows<float, D>(Qs, Lay::LDT, qb, q0, Lay::BQ, N);
   for (int i = lane; i < 16 * D; i += 32) Ow[(i / D) * Lay::LDO + i % D] = 0.f;
 
   // each lane owns row r of the warp's 16 and one half of the tile's columns
@@ -177,8 +196,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int n_tiles = (N + BK - 1) / BK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    load_rows<T, D>(Ks, Lay::LDT, kb, k0, BK, N);
-    load_rows<T, D>(Vs, Lay::LDT, vb, k0, BK, N);
+    load_rows<float, D>(Ks, Lay::LDT, kb, k0, BK, N);
+    load_rows<float, D>(Vs, Lay::LDT, vb, k0, BK, N);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -195,11 +214,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float m_new = fmaxf(m_run, tmax);
     const float alpha = expf(m_run - m_new);   // 0 on the first tile
     float psum = 0.f;
-    T* prow = Pw + r * Lay::LDP + half * HC;
+    float* prow = Pw + r * Lay::LDS + half * HC;
     for (int c = 0; c < HC; ++c) {
       const float p = c < lim ? expf(srow[c] * scale - m_new) : 0.f;
       psum += p;
-      prow[c] = from_f32<T>(p);
+      prow[c] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     l_run = l_run * alpha + psum;
@@ -209,7 +228,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < D / 16; ++j)
-      warp_tile<RowMajor, RowMajor>(Ow + j * 16, Lay::LDO, Pw, Lay::LDP, Vs + j * 16,
+      warp_tile<RowMajor, RowMajor>(Ow + j * 16, Lay::LDO, Pw, Lay::LDS, Vs + j * 16,
                                     Lay::LDT, BK, false);
     __syncthreads();   // K and V are overwritten by the next tile
   }
@@ -222,7 +241,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int row = q0 + warp * 16 + r;
   if (half == 0 && row < N) lse[bh * N + row] = m_run + logf(l_run);
   __syncthreads();   // the block's 64 rows of O, stored by all its threads
-  store_rows<T, D>(o + bh * N * D, reinterpret_cast<float*>(smem + Lay::O), Lay::LDO, q0,
+  store_rows<float, D>(o + bh * N * D, reinterpret_cast<float*>(smem + Lay::O), Lay::LDO, q0,
                    Lay::BQ, N);
 }
 
@@ -441,12 +460,16 @@ cudaError_t opt_in(Kern kern, int bytes) {
 
 // Tile sizes: forward (64 queries, BK keys); dK/dV (BKB keys, BQB queries);
 // dQ (BQ queries, BKQ keys). The forward's BK is the key-block width of the
-// plain version in ops/flash_attention.py (block_k()).
+// plain version in ops/flash_attention.py (block_k(); the CPU tests read it
+// from this text). bf16: 128 keys at D = 64; at D = 128 and 256, 64, where
+// a 128-key ring leaves one block per SM (D = 128) or O takes 128 registers
+// a thread (D = 256). FWD_BLOCKS is the bf16 forward's blocks per SM.
 template <typename T, int D>
 struct Tiles;
 template <int D>
 struct Tiles<bf16, D> {
-  static constexpr int BK = 64;
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int FWD_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int DKV_K = D == 256 ? 32 : 64, DKV_Q = 64;
   static constexpr int DQ_Q = 64, DQ_K = D == 256 ? 32 : 64;
 };
@@ -460,18 +483,23 @@ struct Tiles<float, D> {
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                        int BH, int N, float scale, cudaStream_t s) {
-  constexpr int BK = Tiles<T, D>::BK;
-  using Lay = FwdLayout<T, D, BK>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = opt_in(flash_fwd<T, D, BK>, Lay::BYTES);
-    if (e != cudaSuccess) return e;
-    configured = true;
+  using Tl = Tiles<T, D>;
+  if constexpr (std::is_same<T, bf16>::value) {
+    return sm90::launch<D, Tl::BK, flash_fwd_sm90<D, Tl::BK, Tl::FWD_BLOCKS>>(
+        q, k, v, o, lse, BH, N, N, D, scale, s);
+  } else {
+    using Lay = FwdLayout<D, Tl::BK>;
+    static bool configured = false;
+    if (!configured) {
+      cudaError_t e = opt_in(flash_fwd_f32<D, Tl::BK>, Lay::BYTES);
+      if (e != cudaSuccess) return e;
+      configured = true;
+    }
+    dim3 grid(BH, (N + Lay::BQ - 1) / Lay::BQ);
+    flash_fwd_f32<D, Tl::BK><<<grid, THREADS, Lay::BYTES, s>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, (float*)lse, N, scale);
+    return cudaGetLastError();
   }
-  dim3 grid(BH, (N + Lay::BQ - 1) / Lay::BQ);
-  flash_fwd<T, D, BK><<<grid, THREADS, Lay::BYTES, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, N, scale);
-  return cudaGetLastError();
 }
 
 template <typename T, int D>

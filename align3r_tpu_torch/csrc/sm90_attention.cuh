@@ -1,0 +1,486 @@
+// The Hopper core of the bf16 attention forwards: K9's forward
+// (flash_attention.cu) and K6 (small_attention.cu) are two softmax policies
+// on one kernel.
+//
+// For q (BH, Nq, D) and k, v (BH, Nk, D) in bf16, D <= DP (DP = 16, 32, 64,
+// 128 or 256; the columns past D are zero-filled), one block of one
+// warpgroup (128 threads) per (head, 64-query tile):
+//   - TMA brings Q once and keeps a ring of STAGES (K, V) key tiles of BK
+//     keys in flight, behind full mbarriers. One thread refills a stage as
+//     soon as all four warps have passed the products that read it, so the
+//     next tile loads while this one is computed. The maps are 3-D
+//     (D, rows, BH) with 32/64/128-byte swizzle, so a box past the last row
+//     of a head, or past D, is zero-filled by the copy engine.
+//   - S = Q K^T is wgmma.m64n{BK}k16 with both operands in shared memory
+//     (K-major descriptors) and S in registers.
+//   - The softmax runs on those registers: a thread holds two rows (r, r + 8)
+//     of its warp's 16; a row's values sit in the 4 lanes of a quad, so a row
+//     max or sum takes two shfl_xor. p = exp2(s * D^-1/2 * log2(e) - m) in
+//     fp32; keys >= Nk are masked to -inf.
+//   - P is rounded to bf16 in registers: the m64nN accumulator fragment,
+//     packed in pairs, is the A fragment of the next product's k16 slices.
+//     O += P V is wgmma.m64n{DP}k16 with A from registers and V from shared
+//     memory as an N-major operand (the transpose bit for B), O in registers.
+//   - The epilogue divides by the row sum in registers and stores bf16 O for
+//     rows < Nq (and K9's fp32 log-sum-exp).
+// No atomics and no split over keys: two launches give the same bits.
+//
+// Softmax policies:
+//   ONLINE (K9): per key tile, the running row max m and sum l of the
+//     unrounded p = exp(s - m_running); O and l rescaled by exp(m_old - m_new);
+//     P rounded against the running max; lse = m + log(l).
+//   EXACT (K6): a first pass over the key tiles (K only) takes the exact row
+//     max; the second pass forms p against it, sums the unrounded p and runs
+//     P V. S is computed twice: 1.5x the products of one pass.
+#pragma once
+
+#include "common.cuh"
+
+#include <cuda.h>   // CUtensorMap; the encoder comes through the runtime (no -lcuda)
+
+namespace a3r {
+namespace sm90 {
+
+constexpr int BQ = 64;         // query rows per block: the wgmma M of one warpgroup
+constexpr int THREADS = 128;   // one warpgroup
+constexpr int STAGES = 2;      // depth of the K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Columns of a (rows x DP) bf16 tile in shared memory: NCB blocks of CB
+// columns, each block rows x SW bytes as TMA writes it with an SW-byte
+// swizzle (the 16-byte chunk index XOR the row's bits), 1024-byte aligned.
+template <int DP>
+struct Cols {
+  static constexpr int CB = DP < 64 ? DP : 64;
+  static constexpr int NCB = DP / CB;
+  static constexpr int SW = CB * 2;   // 32, 64 or 128
+  // the wgmma descriptor's layout type for that swizzle
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+};
+
+template <int DP, int BK>
+struct Smem {
+  static constexpr int QB = BQ * DP * 2;             // Q tile bytes
+  static constexpr int KB = BK * DP * 2;             // one K or V tile
+  static constexpr int K0 = QB;                      // stage s: K at K0 + 2 s KB, V after it
+  static constexpr int BAR = K0 + STAGES * 2 * KB;   // STAGES full barriers, then Q's
+  static constexpr int BYTES = BAR + (STAGES + 1) * 8 + 1024;   // + the base's alignment
+  static_assert(QB % 1024 == 0 && KB % 1024 == 0, "tiles must keep 1024-byte alignment");
+};
+
+// ------------------------------------------------------------ PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// A wait that outlasts 4 s traps: a copy that never lands becomes a launch
+// error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// the box at (column c0, row c1, head c2) of `map` into shared memory at
+// dst; completion is counted on the mbarrier at bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator across the wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout type
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
+}
+
+// K-major operand: a (ROWS x DP) tile, reduced along DP; k16 slice kk. The
+// 8-row groups are 8 SW bytes apart; within a swizzle row, a slice starts 32
+// bytes after the previous one (the hardware applies the XOR).
+template <int DP, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  using C = Cols<DP>;
+  const int col = kk * 16;
+  return make_desc(tile + (col / C::CB) * ROWS * C::SW + (col % C::CB) * 2, 16, 8 * C::SW,
+                   C::LAYOUT);
+}
+
+// N-major operand: a (ROWS keys x DP) tile reduced along the keys (V in P V);
+// k16 slice ks is 16 rows down. Column blocks are ROWS * SW bytes apart (the
+// leading offset), 8-row groups 8 SW bytes (the stride offset).
+template <int DP, int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
+  using C = Cols<DP>;
+  return make_desc(tile + ks * 16 * C::SW, ROWS * C::SW, 8 * C::SW, C::LAYOUT);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// wgmma.m64nNk16 bf16 -> fp32. Accumulator fragment of thread t (warp w of
+// the warpgroup, lane l): d[4j + 0, 1] at row 16 w + l / 4, columns
+// 8 j + 2 (l % 4) + {0, 1}; d[4j + 2, 3] at the row 8 below.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d (64 x 16, fp32) += A B: A (64 x 16 bf16) from registers, B N-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d (64 x 32, fp32) += A B: A (64 x 16 bf16) from registers, B N-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d (64 x 64, fp32) = (scale_d ? d : 0) + A B^T: A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 64, fp32) += A B: A (64 x 16 bf16) from registers, B N-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (64 x 128, fp32) = (scale_d ? d : 0) + A B^T: A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 128, fp32) += A B: A (64 x 16 bf16) from registers, B N-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d (64 x 256, fp32) += A B: A (64 x 16 bf16) from registers, B N-major in shared memory
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ------------------------------------------------------------ the kernel
+
+// The body of a kernel of THREADS threads launched by launch() below; the
+// maps are the kernel's __grid_constant__ parameters. Each caller wraps it in
+// a __global__ of its own name (flash_fwd_sm90, small_attention_sm90), so a
+// profile tells the two apart.
+template <int DP, int BK, bool EXACT>
+__device__ __forceinline__ void attention_fwd(const CUtensorMap& tq, const CUtensorMap& tk,
+                                              const CUtensorMap& tv, bf16* __restrict__ o,
+                                              float* __restrict__ lse, int Nq, int Nk, int D,
+                                              float scale_log2) {
+  using C = Cols<DP>;
+  using L = Smem<DP, BK>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, bars = base + L::BAR, qbar = bars + 8 * STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
+  const int n_tiles = (Nk + BK - 1) / BK;
+  const int n_iter = EXACT ? 2 * n_tiles : n_tiles;
+
+  // iteration i reads key tile i % n_tiles from stage i % STAGES, with V
+  // only where P V follows (every tile of ONLINE, the second pass of EXACT)
+  auto fill = [&](int i) {
+    const int s = i % STAGES, k0 = (i % n_tiles) * BK;
+    const bool with_v = !EXACT || i >= n_tiles;
+    const uint32_t sk = base + L::K0 + s * 2 * L::KB, full = bars + 8 * s;
+    mbar_expect_tx(full, (with_v ? 2 : 1) * L::KB);
+#pragma unroll
+    for (int b = 0; b < C::NCB; ++b) {
+      tma_load(sk + b * BK * C::SW, &tk, full, b * C::CB, k0, bh);
+      if (with_v) tma_load(sk + L::KB + b * BK * C::SW, &tv, full, b * C::CB, k0, bh);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, L::QB);
+#pragma unroll
+    for (int b = 0; b < C::NCB; ++b) tma_load(sq + b * BQ * C::SW, &tq, qbar, b * C::CB, q0, bh);
+    for (int i = 0; i < STAGES && i < n_iter; ++i) fill(i);
+  }
+  // after every warp's products have read the stage of iteration i
+  auto release = [&](int i) {
+    __syncthreads();
+    if (tid == 0 && i + STAGES < n_iter) fill(i + STAGES);
+  };
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
+  // rows r and r + 8 of the thread: max (log2 units, scaled) and sum of p
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int i = 0; i < n_iter; ++i) {
+    const int s = i % STAGES, k0 = (i % n_tiles) * BK;
+    const bool pv = !EXACT || i >= n_tiles;   // this tile feeds P V
+    const uint32_t sk = base + L::K0 + s * 2 * L::KB;
+    if (EXACT && i == n_tiles) {   // the first pass's exact row max
+      m[0] = quad_max(m[0]) * scale_log2;
+      m[1] = quad_max(m[1]) * scale_log2;
+    }
+    mbar_wait(bars + 8 * s, (i / STAGES) & 1);
+
+    float sc[BK / 2];   // S = Q K^T (unscaled)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      Wgmma<BK>::ss(sc, desc_k<DP, BQ>(sq, kk), desc_k<DP, BK>(sk, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(sc);
+    if (k0 + BK > Nk) {   // the ragged last tile: keys >= Nk take no weight
+      const int c0 = k0 + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        if (c0 + 8 * (e / 4) + (e & 1) >= Nk) sc[e] = -INFINITY;
+    }
+    if (!pv) {   // EXACT's first pass: the row max only (unscaled: the scale is > 0)
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], sc[e]);
+      release(i);
+      continue;
+    }
+    if (!EXACT) {   // ONLINE: the new running max, and the rescale of l and O
+      float t[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) t[(e >> 1) & 1] = fmaxf(t[(e >> 1) & 1], sc[e]);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(t[h]) * scale_log2);
+        alpha[h] = exp2f(m[h] - m_new);   // 0 on the first tile
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    }
+    // p in fp32, summed unrounded; rounded to bf16 pairs as the A fragments
+    // of P V's k16 slices (slice ks holds S's columns 16 ks .. 16 ks + 15)
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int e = 0; e < BK / 2; e += 2) {
+      const int h = (e >> 1) & 1;
+      const float p0 = exp2f(fmaf(sc[e], scale_log2, -m[h]));
+      const float p1 = exp2f(fmaf(sc[e + 1], scale_log2, -m[h]));
+      l[h] += p0 + p1;
+      pa[e / 8][(e / 2) % 4] = pack_bf16(p0, p1);
+    }
+    wgmma_fence();   // acc and pa were written by ordinary instructions
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      Wgmma<DP>::rs(acc, pa[ks], desc_mn<DP, BK>(sk + L::KB, ks));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    release(i);
+  }
+
+  const int r0 = q0 + warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lh = quad_sum(l[h]);
+    const int row = r0 + 8 * h;
+    if (row >= Nq) continue;
+    bf16* orow = o + ((size_t)bh * Nq + row) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h] / lh, acc[4 * j + 2 * h + 1] / lh);
+    if (!EXACT && (lane & 3) == 0) lse[(size_t)bh * Nq + row] = (m[h] + log2f(lh)) * LN2;
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function; the runtime hands out its
+// address, so the library needs no link against libcuda
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) != cudaSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a contiguous (BH, rows, D) bf16 tensor as (D, rows, BH), with
+// boxes of CB columns x box_rows rows of one head: a box past a head's last
+// row or past D is zero-filled, never read from the next head.
+template <int DP>
+inline bool make_map(CUtensorMap* map, const void* ptr, int BH, int rows, int D, int box_rows) {
+  using C = Cols<DP>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)C::CB, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = C::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launches KERN, a __global__ wrapping attention_fwd<DP, BK, ...> with the
+// signature (tq, tk, tv, o, lse, Nq, Nk, D, scale_log2), on q (BH, Nq, D), k
+// and v (BH, Nk, D), o like q, all bf16, contiguous and 16-byte aligned; lse
+// (BH, Nq) fp32 or null. The tensor maps are encoded on the host per call
+// and passed by value.
+template <int DP, int BK, auto KERN>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                   int Nq, int Nk, int D, float scale, cudaStream_t stream) {
+  using L = Smem<DP, BK>;
+  const auto kern = KERN;
+  static bool configured = false;   // one per kernel
+  if (!configured) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map<DP>(&tq, q, BH, Nq, D, BQ) || !make_map<DP>(&tk, k, BH, Nk, D, BK) ||
+      !make_map<DP>(&tv, v, BH, Nk, D, BK))
+    return cudaErrorInvalidValue;
+  const dim3 grid(BH, (Nq + BQ - 1) / BQ);
+  kern<<<grid, THREADS, L::BYTES, stream>>>(tq, tk, tv, (bf16*)o, (float*)lse, Nq, Nk, D,
+                                            scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace a3r

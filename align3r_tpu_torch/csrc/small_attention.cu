@@ -2,7 +2,7 @@
 //
 // Replaces align3r_tpu/ops/small_attention.py: _call (:69-94) ->
 // _kernel_unrolled (:47-65) / _kernel (:31-44). For q (BH, Nq, D) and k, v
-// (BH, Nk, D), per head:
+// (BH, Nk, D), any Nq, Nk >= 1, D <= 128 with D % 8 == 0, per head:
 //   logits = (q k^T) * D^-1/2 in fp32; m = exact row max over all keys;
 //   p = exp(logits - m) in fp32; s = sum of the unrounded fp32 p;
 //   out = (p rounded to v's dtype) v accumulated in fp32, divided by s,
@@ -14,166 +14,44 @@
 // What bounds it on the H100: at the training shapes (4, 16, 576, 64) the
 // two products take 4 * 64 * 576^2 * 64 = 5.4 GFLOP against 19 MB of q, k, v
 // and o, about 5.5 us at either peak (989 TFLOP/s bf16, 3.35 TB/s), so
-// operations and bytes bound it about equally. The (Nq, Nk) logits never
-// reach device memory: they live in shared memory one 64 x 64 tile at a time.
+// operations and bytes bound it about equally; the exact max costs a third
+// product (q k^T again) and the 21 M exponentials take about as long as the
+// products on the SMs' exp units. The (Nq, Nk) logits never reach device
+// memory.
 //
-// Design (a simple, exact kernel first):
-//   bf16: one block of 4 warps per (head, 64-query tile). Pass 1 streams the
-//     key tiles and keeps the exact fp32 row max; pass 2 streams them again,
-//     forms p against that max, sums it in fp32, rounds it to bf16 and
-//     accumulates P V with WMMA (mma.sync) in fp32. The normalisation is
-//     applied to the (64, D) output at the end, so P is rounded before it,
-//     exactly as _kernel_unrolled does. q k^T is computed twice; an online
-//     softmax would round P against a running max and differ. D is padded
-//     to 16, 32, 64 or 128 in shared memory with zeros.
-//   fp32: the same two passes with scalar FMA (the TPU kernel's fp32 path is
-//     off the training recipe's bf16 main path), one block per (head,
-//     32-query tile), four threads per query row.
+// Design:
+//   bf16: the warpgroup-MMA core of sm90_attention.cuh (EXACT policy): one
+//     block per (head, 64-query tile), a TMA-fed ring of 64-key tiles; the
+//     first pass streams K alone and keeps the exact fp32 row max in
+//     registers, the second streams K and V, forms p against that max in
+//     registers, sums it unrounded and feeds it as bf16 to P V from
+//     registers. The normalisation is applied to the output at the end, so
+//     P is rounded before it, exactly as _kernel_unrolled does; an online
+//     softmax would round P against a running max and differ. D is padded to
+//     16, 32, 64 or 128 by the copy engine's zero fill (32-, 64- or 128-byte
+//     swizzle). At the training shapes, 576 tokens are 9 query tiles: 576
+//     blocks for the encoder's 64 heads, 432 for the decoder's 48. At D = 64
+//     a block takes 42 KB of shared memory and, at 90 registers a thread,
+//     5 fit an SM: 660 at once on 132 SMs, so either grid is one wave.
+//   fp32: two passes with scalar FMA (the TPU kernel's fp32 path is off the
+//     training recipe's bf16 main path), one block per (head, 32-query
+//     tile), four threads per query row.
 #include "common.cuh"
-
-#include <mma.h>
+#include "sm90_attention.cuh"
 
 namespace a3r {
 
-constexpr int SQ = 64;         // bf16: query rows per block (4 warps x 16)
 constexpr int SK = 64;         // keys per tile
 constexpr int STHREADS = 128;
 
-template <int DP>
-struct SmallSmem {
-  static constexpr int LDT = DP + 8;                        // bf16 Q/K/V row stride
-  static constexpr int LDS = (SK > DP ? SK : DP) + 4;       // fp32 S / O row stride
-  static constexpr int LDP = SK + 8;                        // bf16 P row stride
-  static constexpr int Q = 0;
-  static constexpr int K = Q + SQ * LDT * 2;
-  static constexpr int V = K + SK * LDT * 2;
-  static constexpr int S = V + SK * LDT * 2;
-  static constexpr int P = S + 4 * 16 * LDS * 4;
-  static constexpr int L = P + 4 * 16 * LDP * 2;
-  static constexpr int BYTES = L + 4 * 16 * 4;
-};
-
-template <int DP>
-__global__ void __launch_bounds__(STHREADS)
-small_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int Nq,
-                     int Nk, int D, float scale) {
-  using namespace nvcuda;
-  using L = SmallSmem<DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* Sw = reinterpret_cast<float*>(smem + L::S) + warp * 16 * L::LDS;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::P) + warp * 16 * L::LDP;
-  float* Lw = reinterpret_cast<float*>(smem + L::L) + warp * 16;
-
-  const int bh = blockIdx.x, q0 = blockIdx.y * SQ;
-  const bf16* qb = q + (size_t)bh * Nq * D;
-  const bf16* kb = k + (size_t)bh * Nk * D;
-  const bf16* vb = v + (size_t)bh * Nk * D;
-  constexpr int CH = DP / 8;  // 16-byte chunks per padded row
-
-  // rows past the end and the padded columns D..DP-1 are zero-filled
-  for (int c = tid; c < SQ * CH; c += STHREADS) {
-    const int r = c / CH, dc = (c % CH) * 8, g = q0 + r;
-    const bool ok = g < Nq && dc < D;
-    cp_async16(Qs + r * L::LDT + dc, ok ? qb + (size_t)g * D + dc : qb, ok ? 16 : 0);
-  }
-  auto load_kv = [&](int k0, bool with_v) {
-    for (int c = tid; c < SK * CH; c += STHREADS) {
-      const int r = c / CH, dc = (c % CH) * 8, g = k0 + r;
-      const bool ok = g < Nk && dc < D;
-      const size_t off = ok ? (size_t)g * D + dc : 0;
-      cp_async16(Ks + r * L::LDT + dc, kb + off, ok ? 16 : 0);
-      if (with_v) cp_async16(Vs + r * L::LDT + dc, vb + off, ok ? 16 : 0);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-  };
-  // S (16 x 64) = this warp's 16 query rows against the resident key tile
-  auto scores = [&]() {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[SK / 16];
-#pragma unroll
-    for (int j = 0; j < SK / 16; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-      for (int j = 0; j < SK / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Ks + j * 16 * L::LDT + kk, L::LDT);
-        wmma::mma_sync(s[j], a, b, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < SK / 16; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, s[j], L::LDS, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // each lane owns row r = lane / 2 of the warp's 16 rows, 32 of the columns
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int n_tiles = (Nk + SK - 1) / SK;
-
-  // pass 1: exact row max of the scaled fp32 logits
-  float mrow = -INFINITY;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * SK, false);
-    scores();
-    const int lim = Nk - t * SK - c0;
-    for (int c = 0; c < 32 && c < lim; ++c)
-      mrow = fmaxf(mrow, Sw[r * L::LDS + c0 + c] * scale);
-    __syncthreads();
-  }
-  mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, 1));
-
-  // pass 2: p = exp(logit - max) in fp32, summed unrounded; rounded to bf16
-  // for P V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  float lrow = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * SK, true);
-    scores();
-    const int lim = Nk - t * SK - c0;
-    for (int c = 0; c < 32; ++c) {
-      const float pv = c < lim ? expf(Sw[r * L::LDS + c0 + c] * scale - mrow) : 0.f;
-      lrow += pv;
-      Pw[r * L::LDP + c0 + c] = __float2bfloat16(pv);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < SK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kk, L::LDP);
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Vs + kk * L::LDT + j * 16, L::LDT);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-  lrow += __shfl_xor_sync(0xffffffffu, lrow, 1);
-  if ((lane & 1) == 0) Lw[r] = lrow;
-#pragma unroll
-  for (int j = 0; j < DP / 16; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, acc[j], L::LDS, wmma::mem_row_major);
-  __syncwarp();
-  // the warp's 16 output rows are 16 * D contiguous values
-  const int row0 = q0 + warp * 16;
-  const int rows = Nq - row0 < 16 ? Nq - row0 : 16;
-  bf16* ob = o + (size_t)bh * Nq * D + (size_t)row0 * D;
-  for (int i = lane; i < rows * D; i += 32) {
-    const int rr = i / D, cc = i - rr * D;
-    ob[i] = __float2bfloat16(Sw[rr * L::LDS + cc] / Lw[rr]);
-  }
+// the EXACT policy of sm90_attention.cuh, at padded head dim DP
+template <int DP, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+small_attention_sm90(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                     float* __restrict__ lse, int Nq, int Nk, int D, float scale_log2) {
+  sm90::attention_fwd<DP, SK, true>(tq, tk, tv, o, lse, Nq, Nk, D, scale_log2);
 }
 
 // ------------------------------------------------------------------- fp32
@@ -266,23 +144,12 @@ small_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// blocks per SM: 4 up to DP = 64 (40 KB of tiles each), 2 at DP = 128
 template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int BH, int Nq, int Nk, int D, float scale,
-                        cudaStream_t s) {
-  using L = SmallSmem<DP>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(small_attention_bf16<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::BYTES);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
-  dim3 grid(BH, (Nq + SQ - 1) / SQ);
-  small_attention_bf16<DP><<<grid, STHREADS, L::BYTES, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Nq, Nk, D, scale);
-  return cudaGetLastError();
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int BH, int Nq,
+                        int Nk, int D, float scale, cudaStream_t s) {
+  return sm90::launch<DP, SK, small_attention_sm90<DP, DP == 128 ? 2 : 4>>(
+      q, k, v, o, nullptr, BH, Nq, Nk, D, scale, s);
 }
 
 }  // namespace a3r
@@ -293,7 +160,7 @@ A3R_EXPORT int a3r_small_attention(const void* q, const void* k, const void* v,
                                    void* o, int BH, int Nq, int Nk, int D,
                                    int is_bf16, float scale, void* stream) {
   if (D <= 0 || D > 128 || D % 8 || Nq <= 0 || Nk <= 0 || BH <= 0 ||
-      (Nq + SQ - 1) / SQ > 65535)
+      (Nq + sm90::BQ - 1) / sm90::BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {

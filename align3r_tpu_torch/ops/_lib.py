@@ -7,7 +7,10 @@ root (listed in ``.gitignore``); the file name carries a hash of the sources
 and flags, so an edit rebuilds and an unchanged tree reuses the library.
 The library is loaded with ``ctypes``: pointers and the stream are passed as
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``, which
-:func:`check` turns into an exception.
+:func:`check` turns into an exception. ``ptxas -v`` reports each kernel's
+registers and spill bytes; the report is kept beside the library
+(``.log``). The TMA descriptors of the sm90 attention kernels are encoded
+through the runtime's driver entry point, so the link needs no ``-lcuda``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -82,7 +85,8 @@ def build() -> tuple[Path, float]:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{f.stem}.o" for f in cu]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+                                   str(f)],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True) for f, o in zip(cu, objs)]
         logs = [p.communicate()[1] for p in procs]
@@ -90,6 +94,7 @@ def build() -> tuple[Path, float]:
                 for f, p, log in zip(cu, procs, logs) if p.returncode]
         if errs:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errs))
+        path.with_suffix(".log").write_text("\n".join(logs))
         out = Path(tmp) / path.name
         res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(out),
                               *map(str, objs)], capture_output=True, text=True)

@@ -14,8 +14,8 @@ The CUDA implementation is csrc/flash_attention.cu; what bounds it and what
 its design does about that is written at the top of that file.
 
 ``flash_attention_plain`` runs the kernel's own blocking (the same key-block
-width, so P is rounded against the same running max), so the CPU tests
-exercise it. The stock TPU kernel's key block is 128-512 keys
+width, ``block_k``, so P is rounded against the same running max), so the
+CPU tests exercise it. The stock TPU kernel's key block is 128-512 keys
 (attention.py:62), so the two agree to one bf16 rounding of P, not bit for
 bit. ``flash_attention_bwd_plain`` is the recompute-from-LSE backward.
 
@@ -35,8 +35,11 @@ HEAD_DIMS = (64, 128, 256)
 
 def block_k(D: int, dtype) -> int:
     """The forward kernel's key-block width for (D, dtype) (csrc Tiles::BK):
-    64 keys, 32 for fp32 at D = 256 where 64 would not fit shared memory."""
-    return 32 if dtype == torch.float32 and D == 256 else 64
+    bf16 128 keys at D = 64 and 64 at D = 128, 256; fp32 64 keys, 32 at
+    D = 256 where 64 would not fit shared memory."""
+    if dtype == torch.bfloat16:
+        return 128 if D == 64 else 64
+    return 32 if D == 256 else 64
 
 
 def flash_attention_plain(q, k, v):

@@ -7,10 +7,14 @@ Phases, each printing its own line; any failure exits non-zero without the
 final result line:
   1. device   - requires CUDA; prints `nvidia-smi` name and power limit.
   2. build    - compiles the port's CUDA kernels (align3r_tpu_torch/csrc)
-                with nvcc into build/ and prints the seconds it took.
+                with nvcc into build/ and prints the seconds it took, and
+                each kernel's registers and spill bytes (ptxas -v).
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
-                stated tolerance, and the time of each side (CUDA events).
+                stated tolerance, and the time of each side (CUDA events; the
+                bf16 attention forwards K6 and K9, and the library call beside
+                them, replayed from a CUDA graph, since their wrappers' host
+                time is about their kernels' time).
   4. parity   - a small model, a small solve and the flow term (gate off) run
                 on the card and on the CPU, from the same seeded weights and
                 inputs; they must agree.
@@ -73,6 +77,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,6 +113,54 @@ def cuda_time(fn, reps: int, warmup: int = 2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel (mangled name): [registers, spill store bytes, spill load
+    bytes]} from the build's `ptxas -v` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0, 0]
+        elif name and "spill stores" in line:
+            out[name][1:] = map(int, re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name][0] = int(m.group(1))
+    return out
+
+
+def graph_time(fn, reps: int):
+    """Mean milliseconds of fn() replayed from one CUDA graph of `reps` calls,
+    by CUDA events: the device's time, without the host's. A short kernel's
+    Python wrapper can take longer than the kernel, and cuda_time then times
+    the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    return t0.elapsed_time(t1) / reps
+
+
+def ratios(row):
+    """The row with ms / library_ms and bound_ms / ms beside its numbers."""
+    if row.get("library_ms"):
+        row["ms_over_library"] = row["ms"] / row["library_ms"]
+    row["bound_over_ms"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def max_err(a, b):
@@ -410,11 +463,12 @@ def check_k9(dev, gen):
     prior branch's 4 x 12 heads, 1024 tokens, D = 64, bf16), a ragged length
     (1000), fp32, and D = 128. The backward is held on the same (o, lse, dO).
     Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max) in bf16: both round P
-    against the same running max over the same 64-key blocks (and P, dS to
-    bf16 in the backward), summed in another order; 1e-4 x max in fp32.
+    against the same running max over the same key blocks, block_k (and P,
+    dS to bf16 in the backward), summed in another order; 1e-4 x max in fp32.
     Beside each, scaled_dot_product_attention on the same inputs (forward;
     and its backward alone, timed on a retained graph), which the port never
-    calls."""
+    calls. The forwards are timed from a CUDA graph (device time; `_eager`:
+    launched one by one), the backwards one by one."""
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import flash_attention as fa
@@ -447,13 +501,16 @@ def check_k9(dev, gen):
         bb_ms, bb_by = bound(8 * heads * N_ * D_ * isz + heads * N_ * 4,
                              10 * heads * N_ * N_ * D_, peak)
         tag = f"{name} {tuple(shape)} {'bf16' if isz == 2 else 'fp32'}"
-        rows.append(dict(kernel="K9", shape=tag, max_abs_err=ef[0], max_rel_err=ef[1],
-                         tol=rel_tol * ef[2], ok=ok_f,
-                         ms=cuda_time(lambda: fa.flash_attention_fwd(q, k, v), 20),
-                         plain_ms=cuda_time(lambda: fa.flash_attention_plain(q, k, v), 3),
-                         library_ms=cuda_time(lambda: F.scaled_dot_product_attention(q, k, v), 20),
-                         bound_ms=fb_ms, bound_by=fb_by))
-        rows.append(dict(kernel="K9 bwd", shape=tag, max_abs_err=max(e[0] for e in eb),
+        kern = lambda: fa.flash_attention_fwd(q, k, v)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)
+        rows.append(ratios(dict(
+            kernel="K9", shape=tag, max_abs_err=ef[0], max_rel_err=ef[1],
+            tol=rel_tol * ef[2], ok=ok_f, ms=graph_time(kern, 20),
+            ms_eager=cuda_time(kern, 20),
+            plain_ms=cuda_time(lambda: fa.flash_attention_plain(q, k, v), 3),
+            library_ms=graph_time(lib, 20), library_ms_eager=cuda_time(lib, 20),
+            bound_ms=fb_ms, bound_by=fb_by)))
+        rows.append(ratios(dict(kernel="K9 bwd", shape=tag, max_abs_err=max(e[0] for e in eb),
                          max_rel_err=max(e[1] for e in eb),
                          tol=f"{rel_tol} x max (dq {eb[0][2]:.3g}, dk {eb[1][2]:.3g}, "
                              f"dv {eb[2][2]:.3g})", ok=ok_b,
@@ -462,7 +519,7 @@ def check_k9(dev, gen):
                              lambda: fa.flash_attention_bwd_plain(q, k, v, ro, rlse, do), 3),
                          library_ms=cuda_time(lambda: torch.autograd.grad(
                              so, (qs, ks, vs), do, retain_graph=True), 10),
-                         bound_ms=bb_ms, bound_by=bb_by))
+                         bound_ms=bb_ms, bound_by=bb_by)))
         del q, k, v, do, o, ro, grads, refs, so, qs, ks, vs
     return rows
 
@@ -767,7 +824,8 @@ def check_k6(dev, gen):
     scaled_dot_product_attention on the same inputs (the library call the
     port never makes). Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max)
     in bf16 as for K1; 1e-4 x max in fp32 (fp32 arithmetic on both sides,
-    sums over 576 keys in another order)."""
+    sums over 576 keys in another order). Kernel and library call are timed
+    from a CUDA graph (device time; `_eager`: launched one by one)."""
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import small_attention as sa
@@ -789,12 +847,14 @@ def check_k6(dev, gen):
         isz = out.element_size()
         b_ms, b_by = bound(4 * B_ * H_ * N_ * D_ * isz, 4 * B_ * H_ * N_ * N_ * D_,
                            PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
-        rows.append(dict(kernel="K6", shape=f"{name} {tuple(shape)} "
-                         f"{'bf16' if dt == torch.bfloat16 else 'fp32'}",
-                         max_abs_err=err, max_rel_err=rel, tol=tol,
-                         ok=err <= tol and torch.isfinite(out.float()).all().item(),
-                         ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
-                         library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by))
+        rows.append(ratios(dict(
+            kernel="K6", shape=f"{name} {tuple(shape)} "
+            f"{'bf16' if dt == torch.bfloat16 else 'fp32'}",
+            max_abs_err=err, max_rel_err=rel, tol=tol,
+            ok=err <= tol and torch.isfinite(out.float()).all().item(),
+            ms=graph_time(kern, 20), ms_eager=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+            library_ms=graph_time(lib, 20), library_ms_eager=cuda_time(lib, 20),
+            bound_ms=b_ms, bound_by=b_by)))
         del q, k, v, out, ref
     return rows
 
@@ -1153,6 +1213,10 @@ def main() -> int:
         path, secs = _lib.build()
         _lib.library()
         print(f"build: {path.name} in {secs:.1f} s", flush=True)
+        usage = ptxas_usage(path.with_suffix(".log").read_text())
+        print("build: ptxas registers and spill bytes " + json.dumps(usage), flush=True)
+        print("build: kernels that spill " + json.dumps(
+            [k for k, (_, st, ld) in usage.items() if st or ld]), flush=True)
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1204,6 +1268,13 @@ def main() -> int:
         print("long: K9 gradient " + json.dumps(check_k9_grad(dev, gen)), flush=True)
         torch.cuda.empty_cache()
         long_launches, long_stats = long_path(dev)
+        # the K9-forward share of a micro-step, from the kernel times above:
+        # 24 encoder-shaped and 56 decoder-shaped forwards per micro-step
+        k9 = {r["shape"].split(" (")[0]: r["ms"] for r in rows if r["kernel"] == "K9"}
+        k9_ms = 24 * k9["encoder"] + 56 * k9["decoder / prior"]
+        long_stats["k9_fwd_share_est"] = k9_ms / long_stats["warm_ms_per_micro_step"]
+        print(f"long: K9 forward {k9_ms:.3f} ms per micro-step, "
+              f"{100 * long_stats['k9_fwd_share_est']:.1f}% of it", flush=True)
     except Exception:
         traceback.print_exc()
         return fail(phase, "exception (traceback above)")
@@ -1243,7 +1314,8 @@ def main() -> int:
                         "library_ms": mine[0].get("library_ms"),
                         "shape": mine[0]["shape"],
                         "checks": [{k2: r.get(k2) for k2 in (
-                            "shape", "ms", "ms_unsorted", "plain_ms", "library_ms",
+                            "shape", "ms", "ms_eager", "ms_unsorted", "plain_ms", "library_ms",
+                            "library_ms_eager", "ms_over_library", "bound_over_ms",
                             "xla_chain_ms", "bound_ms", "bound_by", "max_abs_err")}
                                    for r in mine]})
     print(card, flush=True)

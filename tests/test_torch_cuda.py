@@ -11,8 +11,11 @@ edges: token counts that are not a multiple of the 64-row attention tile or
 the 128-row GEMM tile, pixel counts that are not a multiple of the 1024-pixel
 edge-loss tile, and an image with no edge terms; for K6, query and key
 counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
-padded in shared memory (8, 40, 128); for K9, sequence lengths that are not
-a multiple of its 64- or 32-row tiles at every head dim it takes; for K7 and
+padded with zeros (8, 40, 128), one key (the P V product alone) and one key
+tile against V = I (the first product alone); for K9, sequence lengths that
+are not a multiple of its 128-, 64- or 32-row tiles at every head dim it
+takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards, two
+launches that give the same bits; for K7 and
 K8, pixel counts that are not a multiple of the 128-pixel conv tile.
 Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
 K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
@@ -22,6 +25,8 @@ gradients of K6 and of the differentiable K1/K2 sites are autograd of their
 plain twins on the card, so they are held to those twins' autograd at 1e-5.
 Convolutions of the plain versions run without TF32.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -199,9 +204,13 @@ def test_flow_term_and_image_sorted_solve_on_the_card(dev):
     assert torch.isfinite(losses).all()
 
 
+# (B, H, Nq, D, Nk); the bf16 kernel's query and key tiles are 64 rows, D is
+# padded to 16, 32, 64 or 128 (32-, 64- or 128-byte swizzle)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 3, 80, 64, 80), (1, 2, 48, 40, 100),
-                                   (1, 1, 64, 128, 64), (2, 2, 16, 8, 33)])
+                                   (1, 1, 64, 128, 64), (2, 2, 16, 8, 33)] + [
+    (1, 3, nq, d, nk) for nq, nk, d in itertools.product((48, 80, 200), (33, 100, 576),
+                                                         (8, 40, 64, 128))])
 def test_small_attention_kernel(dev, dtype, shape):
     B, H, Nq, D, Nk = shape
     g = torch.Generator(device=dev).manual_seed(4)
@@ -215,6 +224,51 @@ def test_small_attention_kernel(dev, dtype, shape):
     tol = 1.6e-2 if dtype == torch.bfloat16 else 1e-4
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("D", [8, 40, 64, 128])
+def test_small_attention_one_key_returns_v(dev, D):
+    """With one key, p = 1 and the output is v's row, bit for bit: the P V
+    product and V's N-major descriptor alone."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(2, 2, 80, D, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(2, 2, 1, D, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out = sa.small_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v.expand_as(out))
+
+
+@pytest.mark.parametrize("D", [8, 40, 64, 128])
+def test_small_attention_single_tile_scores(dev, D):
+    """One key tile with V = the identity: the output is the rounded softmax
+    of q k^T itself, so it holds the first product (Q and K descriptors, the
+    swizzle, the masked keys past Nk) to the plain version."""
+    Nk = min(D, 64)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(1, 2, 100, D, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, 2, Nk, D, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.eye(Nk, D, device=dev, dtype=torch.bfloat16).expand(1, 2, Nk, D).contiguous()
+    out = sa.small_attention(q, k, v)
+    torch.cuda.synchronize()
+    _bf16_close(out, sa.small_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("kernel", ["K6", "K9"])
+def test_attention_forwards_are_deterministic(dev, kernel):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    split over keys)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    shape = (2, 5, 576, 64) if kernel == "K6" else (2, 5, 1000, 64)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    if kernel == "K6":
+        a, b = sa.small_attention(q, k, v), sa.small_attention(q, k, v)
+    else:
+        (a, la), (b, lb) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_fwd(q, k, v)
+        assert torch.equal(la, lb)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -359,7 +413,8 @@ def _close(out, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(2, 3, 130, 64), (1, 2, 1000, 64), (1, 2, 77, 128),
-                                   (1, 1, 200, 256), (2, 1, 40, 64)])
+                                   (1, 1, 200, 256), (2, 1, 40, 64), (1, 5, 200, 64),
+                                   (3, 1, 257, 64), (1, 3, 129, 128), (1, 3, 333, 256)])
 def test_flash_attention_kernels(dev, dtype, shape):
     """K9's forward (o and the log-sum-exp) and backward against their plain
     versions on the same inputs, and the autograd Function through both."""

@@ -9,13 +9,16 @@ attention. Tolerances, each with its reason:
   tests/test_stock_flash.py) and 1e-5 of the largest value against the XLA
   attention: the same math, sums in another order;
 - bf16 forward: 1e-2 absolute (outputs of magnitude about 1): the port
-  rounds P to bf16 against its running max over 64-key blocks, the stock
-  kernel over 256-key blocks here, so one bf16 rounding of P (relative
-  4e-3) differs;
+  rounds P to bf16 against its running max over 128-key blocks at D = 64
+  (block_k), the stock kernel over 128- (N = 300) or 256-key (N = 256)
+  blocks here, so one bf16 rounding of P (relative 4e-3) differs;
 - gradients: 1e-4 of the largest gradient, the JAX test's tolerance;
 - the train step on the K9 route: test_torch_training's tolerances.
 On the CPU every wrapper takes its plain version and counts no launch.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +60,22 @@ def test_flash_route_off_the_card_matches_jax():
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("n, dtype, atol", [(130, "fp32", 2e-5), (256, "bf16", 1e-2)])
+def test_block_k_is_the_kernels_key_tile():
+    """block_k(), which the plain forward runs, is the forward kernel's BK as
+    written in csrc/flash_attention.cu (Tiles<T, D>::BK), so the plain version
+    and the kernel round P against the same running max."""
+    src = (Path(tfa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "float")):
+        body = re.search(r"struct Tiles<%s, D> \{(.*?)\};" % name, src, re.S).group(1)
+        d, bk_at_d, bk_else = map(int, re.search(
+            r"BK = D == (\d+) \? (\d+) : (\d+);", body).groups())
+        for D in tfa.HEAD_DIMS:
+            assert tfa.block_k(D, dtype) == (bk_at_d if D == d else bk_else), (name, D)
+
+
+# N = 300: a ragged length across the 128-key block of the bf16 kernel at D = 64
+@pytest.mark.parametrize("n, dtype, atol", [(130, "fp32", 2e-5), (256, "bf16", 1e-2),
+                                            (300, "bf16", 1e-2)])
 def test_plain_forward_matches_stock_flash_interpret(n, dtype, atol):
     jdt, tdt = {"fp32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
