@@ -26,8 +26,9 @@
 // v and o: 17 us of bf16 tensor-core time against 10 us of memory, so
 // operations bound it. Its 67 M exponentials take about as long again on the
 // SMs' 16-per-clock exp units, so the softmax has to overlap the products.
-// The backward does 2.5x the operations. The (N, N) scores never reach
-// device memory.
+// The backward's bound is 5 products (2.5x the forward's operations, 43 us);
+// it runs 7 (S and dP in both of its kernels) and exponentiates P twice. The
+// (N, N) scores never reach device memory.
 //
 // Design:
 //   bf16 forward: the warpgroup-MMA core of sm90_attention.cuh (ONLINE
@@ -36,14 +37,23 @@
 //     where O's registers and the tiles' shared memory leave no room for
 //     128). Up to 3 blocks share an SM, so one block's softmax overlaps
 //     another's products.
-//   fp32 forward and the backward (simple and right first; their redesign is
-//     later work): 4 warps per block; every product is a set of 16 x 16
+//   bf16 backward at D = 64 and 128: the same core's two backward roles
+//     (flash_bwd_dkv_sm90, flash_bwd_dq_sm90) after flash_bwd_prep, which
+//     writes Di and lse * log2(e) padded to 64-row tiles. Every product is a
+//     wgmma with its accumulator in registers (dK and dV, or dQ, for the
+//     whole loop); P^T, dS^T and dS go from accumulator fragments to the next
+//     product's A operand in registers; Q and dO (dK/dV) or K and V (dQ)
+//     stream through a TMA ring. Two kernels and no atomics keep the result
+//     deterministic; the price is S and dP computed in both.
+//   fp32 forward, and the backward in fp32 and at bf16 D = 256 (simple and
+//     right first): 4 warps per block; every product is a set of 16 x 16
 //     output tiles accumulated in fp32 in shared memory by one warp
 //     (warp_tile below): WMMA bf16 -> fp32 for bf16 inputs, scalar FMA in
 //     fp32 without TF32 for fp32 inputs, as K6's fp32 path. Tiles are staged
 //     with 16-byte cp.async, sized per (dtype, D) in Tiles<T, D> so the
 //     shared memory stays within the 227 KB a block may opt in to; D = 256
-//     takes smaller key or query tiles.
+//     takes smaller key or query tiles. They are off the bf16 training
+//     recipes (D = 64).
 #include "common.cuh"
 #include "sm90_attention.cuh"
 
@@ -142,8 +152,9 @@ template <int D, int BK, int MINB>
 __global__ void __launch_bounds__(sm90::THREADS, MINB)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-               float* __restrict__ lse, int Nq, int Nk, int Dv, float scale_log2) {
-  sm90::attention_fwd<D, BK, false>(tq, tk, tv, o, lse, Nq, Nk, Dv, scale_log2);
+               float* __restrict__ lse, int Nq, int Nk, int Dv, int H, int ld,
+               float scale_log2) {
+  sm90::attention_fwd<D, BK, false>(tq, tk, tv, o, lse, Nq, Nk, Dv, H, ld, scale_log2);
 }
 
 // ------------------------------------------------------- fp32 forward
@@ -245,7 +256,54 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                    Lay::BQ, N);
 }
 
-// ----------------------------------------------------------------- backward
+// ------------------------------------------------------- bf16 backward
+
+// The sm90 backward's rows (sm90::BwdRows): per head Np = 64 * ceil(N / 64)
+// rows of Di = sum over d of o * do and lse2 = lse * log2(e), in fp32; the
+// padded rows take Di = 0 and lse2 = +inf. One warp per row.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ di,
+               int N, int Np, long long rows) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int bh = (int)(row / Np), i = (int)(row - (long long)bh * Np);
+  float s = 0.f;
+  if (i < N) {
+    const size_t off = ((size_t)bh * N + i) * D;
+    for (int c = lane; c < D; c += 32) s += to_f32(o[off + c]) * to_f32(dout[off + c]);
+  }
+  s = warp_sum(s);
+  if (lane == 0) {
+    di[row] = s;
+    lse2[row] = i < N ? lse[(size_t)bh * N + i] * sm90::LOG2E : INFINITY;
+  }
+}
+
+// dK/dV per (head, 64-key tile) and dQ per (head, 64-query tile) on the
+// warpgroup-MMA core of sm90_attention.cuh
+template <int D, int BQK, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const sm90::BwdRows rows,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  sm90::attention_bwd_dkv<D, BQK>(tq, tk, tv, tdo, rows, dk, dv);
+}
+
+template <int D, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo, const sm90::BwdRows rows,
+                  bf16* __restrict__ dq) {
+  sm90::attention_bwd_dq<D>(tq, tk, tv, tdo, rows, dq);
+}
+
+// ------------------------------------------- fp32 and bf16 D = 256 backward
 
 // Di = sum over d of o * do, in fp32: one warp per row
 template <typename T, int D>
@@ -458,20 +516,27 @@ cudaError_t opt_in(Kern kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Tile sizes: forward (64 queries, BK keys); dK/dV (BKB keys, BQB queries);
-// dQ (BQ queries, BKQ keys). The forward's BK is the key-block width of the
-// plain version in ops/flash_attention.py (block_k(); the CPU tests read it
-// from this text). bf16: 128 keys at D = 64; at D = 128 and 256, 64, where
-// a 128-key ring leaves one block per SM (D = 128) or O takes 128 registers
-// a thread (D = 256). FWD_BLOCKS is the bf16 forward's blocks per SM.
+// Tile sizes: forward (64 queries, BK keys); the WMMA backward's dK/dV (DKV_K
+// keys, DKV_Q queries) and dQ (DQ_Q queries, DQ_K keys). The forward's BK is
+// the key-block width of the plain version in ops/flash_attention.py
+// (block_k(); the CPU tests read it from this text). bf16: 128 keys at
+// D = 64; at D = 128 and 256, 64, where a 128-key ring leaves one block per
+// SM (D = 128) or O takes 128 registers a thread (D = 256). FWD_BLOCKS is the
+// bf16 forward's blocks per SM. The sm90 backward (D = 64 and 128) takes 64
+// keys by SM90_Q queries in dK/dV (32 at D = 128, where a 64-query S^T and
+// dP^T beside dK and dV would spill) and 64 queries by 64 keys in dQ;
+// DKV_BLOCKS and DQ_BLOCKS are their blocks per SM. D = 256 keeps the WMMA
+// kernels.
 template <typename T, int D>
 struct Tiles;
 template <int D>
 struct Tiles<bf16, D> {
   static constexpr int BK = D == 64 ? 128 : 64;
   static constexpr int FWD_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
-  static constexpr int DKV_K = D == 256 ? 32 : 64, DKV_Q = 64;
-  static constexpr int DQ_Q = 64, DQ_K = D == 256 ? 32 : 64;
+  static constexpr int SM90_Q = D == 64 ? 64 : 32;
+  static constexpr int DKV_BLOCKS = 2, DQ_BLOCKS = D == 64 ? 3 : 2;
+  static constexpr int DKV_K = 32, DKV_Q = 64;   // D = 256
+  static constexpr int DQ_Q = 64, DQ_K = 32;
 };
 template <int D>
 struct Tiles<float, D> {
@@ -542,15 +607,63 @@ cudaError_t fwd_by_d(int D, const void* q, const void* k, const void* v, void* o
   return launch_fwd<T, 256>(q, k, v, o, lse, BH, N, scale, s);
 }
 
-template <typename T>
-cudaError_t bwd_by_d(int D, const void* q, const void* k, const void* v, const void* o,
+// The bf16 backward at D = 64 and 128: the prep kernel, then dK/dV and dQ
+// on the sm90 core. scratch holds 2 BH Np fp32 (Di, then lse2).
+template <int D>
+cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v, const void* o,
+                            const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                            void* scratch, int BH, int N, float scale, cudaStream_t s) {
+  using Tl = Tiles<bf16, D>;
+  constexpr int BQK = Tl::SM90_Q;
+  using LKV = sm90::BwdSmem<D, sm90::BQ, BQK, true>;
+  using LQ = sm90::BwdSmem<D, sm90::BQ, 64, false>;
+  constexpr auto dkv = flash_bwd_dkv_sm90<D, BQK, Tl::DKV_BLOCKS>;
+  constexpr auto dqk = flash_bwd_dq_sm90<D, Tl::DQ_BLOCKS>;
+  cudaError_t e = sm90::configure<dkv>(LKV::BYTES);
+  if (e == cudaSuccess) e = sm90::configure<dqk>(LQ::BYTES);
+  if (e != cudaSuccess) return e;
+  const int Np = (N + 63) / 64 * 64;
+  float* di = (float*)scratch;
+  float* lse2 = di + (size_t)BH * Np;
+  const long long rows = (long long)BH * Np;
+  flash_bwd_prep<D><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      (const bf16*)o, (const bf16*)dout, (const float*)lse, lse2, di, N, Np, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  CUtensorMap tq, tk, tv, tdo, tqs, tdos;   // 64-row boxes; BQK-row boxes of Q and dO
+  if (!sm90::make_map<D>(&tq, q, BH, N, D, D, 64) || !sm90::make_map<D>(&tk, k, BH, N, D, D, 64) ||
+      !sm90::make_map<D>(&tv, v, BH, N, D, D, 64) ||
+      !sm90::make_map<D>(&tdo, dout, BH, N, D, D, 64) ||
+      !sm90::make_map<D>(&tqs, q, BH, N, D, D, BQK) ||
+      !sm90::make_map<D>(&tdos, dout, BH, N, D, D, BQK))
+    return cudaErrorInvalidValue;
+  const sm90::BwdRows a{lse2, di, N, Np, D, scale, scale * sm90::LOG2E};
+  const dim3 grid(BH, (N + 63) / 64);
+  dkv<<<grid, sm90::THREADS, LKV::BYTES, s>>>(tqs, tk, tv, tdos, a, (bf16*)dk, (bf16*)dv);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dqk<<<grid, sm90::THREADS, LQ::BYTES, s>>>(tq, tk, tv, tdo, a, (bf16*)dq);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_bf16(int D, const void* q, const void* k, const void* v, const void* o,
                      const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                     void* di, int BH, int N, float scale, cudaStream_t s) {
+                     void* scratch, int BH, int N, float scale, cudaStream_t s) {
   if (D == 64)
-    return launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+    return launch_bwd_sm90<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
   if (D == 128)
-    return launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
-  return launch_bwd<T, 256>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+    return launch_bwd_sm90<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
+  return launch_bwd<bf16, 256>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
+}
+
+cudaError_t bwd_f32(int D, const void* q, const void* k, const void* v, const void* o,
+                    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                    void* di, int BH, int N, float scale, cudaStream_t s) {
+  if (D == 64)
+    return launch_bwd<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+  if (D == 128)
+    return launch_bwd<float, 128>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
+  return launch_bwd<float, 256>(q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s);
 }
 
 bool bad_args(int BH, int N, int D) {
@@ -573,14 +686,16 @@ A3R_EXPORT int a3r_flash_fwd(const void* q, const void* k, const void* v, void* 
                        : fwd_by_d<float>(D, q, k, v, o, lse, BH, N, scale, s));
 }
 
-// dq, dk, dv (BH, N, D) in the inputs' dtype; di (BH, N) fp32 scratch.
+// dq, dk, dv (BH, N, D) in the inputs' dtype; scratch: 2 BH Np fp32, Np =
+// 64 * ceil(N / 64) (Di and lse2 of the sm90 backward; the WMMA kernels use
+// the first BH N as Di).
 A3R_EXPORT int a3r_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* dq, void* dk,
-                             void* dv, void* di, int BH, int N, int D, int is_bf16,
+                             void* dv, void* scratch, int BH, int N, int D, int is_bf16,
                              float scale, void* stream) {
   if (bad_args(BH, N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16
-                   ? bwd_by_d<bf16>(D, q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s)
-                   : bwd_by_d<float>(D, q, k, v, o, lse, dout, dq, dk, dv, di, BH, N, scale, s));
+                   ? bwd_bf16(D, q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s)
+                   : bwd_f32(D, q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s));
 }

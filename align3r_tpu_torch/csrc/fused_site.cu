@@ -13,7 +13,7 @@
 // sublane tiling and are not carried over. Here a site is:
 //   layernorm_kernel (one warp per token row, fp32 statistics, eps 1e-6)
 //   gemm_kernel<EPI_BIAS_ROPE> for q and k, gemm_kernel<EPI_BIAS> for v
-//   attention_kernel (one block per (stream*row, head, 64-query tile))
+//   site_attention_sm90 (one warpgroup per (row, head, 64-query tile))
 //   gemm_kernel<EPI_BIAS_RESID | EPI_BIAS> for the out-projection,
 // and an MLP site is layernorm -> gemm<EPI_BIAS_GELU> -> gemm<EPI_BIAS_RESID>.
 //
@@ -22,13 +22,18 @@
 // the two differ by at most about 1.5e-7 before rounding to bf16.
 //
 // What bounds it on the H100: the projections and MLP products are
-// compute-bound GEMMs (see gemm.cuh). Attention at N = 576, D = 64 is small
-// (about 15% of a site's FLOPs); the kernel takes two passes over the keys,
-// one for the exact row max and one for P and PV, so P is rounded to bf16
-// against the final max exactly as _kernel:139-145 does, at the price of
-// computing q k^T twice.
+// compute-bound GEMMs (see gemm.cuh; 16 x 16 WMMA, their redesign is next).
+// Attention at N = 576, D = 64 is small (about 15% of a site's FLOPs) and
+// runs on the EXACT policy of sm90_attention.cuh, K6's per-block code on the
+// (rows, N, C) layout: two passes over TMA-fed 64-key tiles, the exact row
+// max from the first, P rounded to bf16 against it in registers in the
+// second, exactly as _kernel:139-145 does, at the price of computing q k^T
+// twice. The heads lie side by side, so a 3-D tensor map (C, N, rows) reads
+// head h's 64 columns and the epilogue writes them back at row stride C; no
+// permuted copy of q, k, v or o is made.
 #include "common.cuh"
 #include "gemm.cuh"
+#include "sm90_attention.cuh"
 
 namespace a3r {
 
@@ -74,140 +79,18 @@ __global__ void layernorm_kernel(const bf16* __restrict__ x,
 
 // ------------------------------------------------------------- attention
 
-constexpr int AQ = 64;            // query rows per block (4 warps x 16)
-constexpr int AK = 64;            // keys per tile
-constexpr int ATHREADS = 128;
+constexpr int AK = 64;   // keys per tile: K6's SK, so the two give the same bits
 
-template <int D>
-struct AttnSmem {
-  static constexpr int LDT = D + 8;      // bf16 row stride of Q/K/V tiles
-  static constexpr int LDS = AK + 4;     // fp32 row stride of S / O staging
-  static constexpr int LDP = AK + 8;     // bf16 row stride of P
-  static constexpr int Q = 0;
-  static constexpr int K = Q + AQ * LDT * 2;
-  static constexpr int V = K + AK * LDT * 2;
-  static constexpr int S = V + AK * LDT * 2;
-  static constexpr int P = S + 4 * 16 * (LDS > D + 4 ? LDS : D + 4) * 4;
-  static constexpr int BYTES = P + 4 * 16 * LDP * 2;
-};
-
-template <int D>
-__global__ void __launch_bounds__(ATHREADS)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int N,
-                 int C, float scale) {
-  using namespace nvcuda;
-  using L = AttnSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int LDS = L::LDS > D + 4 ? L::LDS : D + 4;
-  float* Sw = reinterpret_cast<float*>(smem + L::S) + warp * 16 * LDS;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::P) + warp * 16 * L::LDP;
-
-  const int bh = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AQ;
-  const size_t base = (size_t)bh * N * C + (size_t)h * D;
-  const bf16* qb = q + base;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-
-  for (int c = tid; c < AQ * CH; c += ATHREADS) {
-    const int r = c / CH, dc = (c % CH) * 8, gq = q0 + r;
-    cp_async16(Qs + r * L::LDT + dc, qb + (size_t)(gq < N ? gq : N - 1) * C + dc,
-               gq < N ? 16 : 0);
-  }
-  auto load_kv = [&](int k0, bool with_v) {
-    for (int c = tid; c < AK * CH; c += ATHREADS) {
-      const int r = c / CH, dc = (c % CH) * 8, gk = k0 + r;
-      const size_t off = (size_t)(gk < N ? gk : N - 1) * C + dc;
-      cp_async16(Ks + r * L::LDT + dc, kb + off, gk < N ? 16 : 0);
-      if (with_v) cp_async16(Vs + r * L::LDT + dc, vb + off, gk < N ? 16 : 0);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-  };
-  // S (16 x 64) for this warp's query rows against the resident key tile
-  auto scores = [&]() {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s[AK / 16];
-#pragma unroll
-    for (int j = 0; j < AK / 16; ++j) wmma::fill_fragment(s[j], 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-      for (int j = 0; j < AK / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Ks + j * 16 * L::LDT + kk, L::LDT);
-        wmma::mma_sync(s[j], a, b, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < AK / 16; ++j)
-      wmma::store_matrix_sync(Sw + j * 16, s[j], LDS, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // each lane owns row r = lane / 2 of the warp's 16 rows, 32 columns
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int n_tiles = (N + AK - 1) / AK;
-
-  // pass 1: exact row max of the scaled logits
-  float mrow = -INFINITY;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * AK, false);
-    scores();
-    for (int c = 0; c < 32; ++c)
-      if (t * AK + c0 + c < N) mrow = fmaxf(mrow, Sw[r * LDS + c0 + c] * scale);
-    __syncthreads();
-  }
-  mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, 1));
-
-  // pass 2: p = exp(logit - max) in fp32, summed in fp32, rounded to bf16
-  // for PV (the normalisation is applied to the (16, D) output at the end)
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  float lrow = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * AK, true);
-    scores();
-    for (int c = 0; c < 32; ++c) {
-      const bool ok = t * AK + c0 + c < N;
-      const float pv = ok ? expf(Sw[r * LDS + c0 + c] * scale - mrow) : 0.f;
-      lrow += pv;
-      Pw[r * L::LDP + c0 + c] = __float2bfloat16(pv);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < AK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Pw + kk, L::LDP);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Vs + kk * L::LDT + j * 16, L::LDT);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-  lrow += __shfl_xor_sync(0xffffffffu, lrow, 1);
-  const float inv = 1.0f / lrow;
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j)
-    wmma::store_matrix_sync(Sw + j * 16, acc[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  const int gq = q0 + warp * 16 + r;
-  if (gq < N) {
-    bf16* ob = o + base + (size_t)gq * C;
-    for (int c = lane & 1; c < D; c += 2)
-      ob[c] = __float2bfloat16(Sw[r * LDS + c] * inv);
-  }
+// the EXACT policy of sm90_attention.cuh on K1's (rows, N, C) layout, one
+// head per 64 columns: K6's per-block code (small_attention_sm90<64, 4>)
+template <int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+site_attention_sm90(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Nq, int Nk, int D, int H, int ld,
+                    float scale_log2) {
+  sm90::attention_fwd<64, AK, true>(tq, tk, tv, o, lse, Nq, Nk, D, H, ld, scale_log2);
 }
 
 }  // namespace a3r
@@ -246,21 +129,13 @@ A3R_EXPORT int a3r_gemm(const void* A, const void* W, const void* bias,
   }
 }
 
+// q, k, v, o (rows, N, C) bf16, contiguous and 16-byte aligned, head h at
+// columns 64 h .. 64 h + 63 (D = 64 only)
 A3R_EXPORT int a3r_attention(const void* q, const void* k, const void* v,
                              void* o, int rows, int N, int C, int H,
                              float scale, void* stream) {
-  if (C != H * 64) return (int)cudaErrorInvalidValue;  // D = 64 only
-  using L = AttnSmem<64>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<64>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L::BYTES);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid((N + AQ - 1) / AQ, H, rows);
-  attention_kernel<64><<<grid, ATHREADS, L::BYTES, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, N, C, scale);
-  return (int)cudaGetLastError();
+  if (C != H * 64 || rows <= 0 || N <= 0 || (N + sm90::BQ - 1) / sm90::BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)sm90::launch<64, AK, site_attention_sm90<4>>(
+      q, k, v, o, nullptr, rows * H, N, N, 64, scale, (cudaStream_t)stream, H, C);
 }

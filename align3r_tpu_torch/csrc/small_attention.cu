@@ -50,8 +50,9 @@ __global__ void __launch_bounds__(sm90::THREADS, MINB)
 small_attention_sm90(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                     float* __restrict__ lse, int Nq, int Nk, int D, float scale_log2) {
-  sm90::attention_fwd<DP, SK, true>(tq, tk, tv, o, lse, Nq, Nk, D, scale_log2);
+                     float* __restrict__ lse, int Nq, int Nk, int D, int H, int ld,
+                     float scale_log2) {
+  sm90::attention_fwd<DP, SK, true>(tq, tk, tv, o, lse, Nq, Nk, D, H, ld, scale_log2);
 }
 
 // ------------------------------------------------------------------- fp32

@@ -116,10 +116,12 @@ def _bwd_cuda(q, k, v, o, lse, do):
     q, k, v, o, do = (_lib.dense(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    di = torch.empty(B, H, N, device=q.device, dtype=torch.float32)
+    # Di and the log2-unit log-sum-exp, each (B H, N padded to 64 rows)
+    scratch = torch.empty(2 * B * H * (-(-N // 64) * 64), device=q.device,
+                          dtype=torch.float32)
     _lib.check(_lib.library().a3r_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), di.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
         B * H, N, D, int(q.dtype == torch.bfloat16), D ** -0.5, _lib.stream()), "K9 bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

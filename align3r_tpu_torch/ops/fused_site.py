@@ -12,8 +12,10 @@ K2 ``mlp_site`` replaces ``_mlp_kernel`` (:242) and ``_mlp_fblock_kernel``
 The CUDA implementation (csrc/fused_site.cu, csrc/gemm.cuh) runs each site as
 several hand-written launches: a LayerNorm kernel, tiled bf16 tensor-core
 GEMMs with fused epilogues (bias, bias + RoPE, bias + GELU, bias + residual)
-and a two-pass attention kernel. What bounds it and what the design does
-about it is written at the top of those files.
+and an attention launch on the exact-max policy of csrc/sm90_attention.cuh,
+K6's per-block code on the (rows, N, C) layout (``site_attention``). What
+bounds it and what the design does about it is written at the top of those
+files.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernels (and counts the launch on the wrapper's ``launches``) or raises for a
@@ -117,6 +119,49 @@ def _ln_cuda(lib, x, p, s):
     return y
 
 
+def site_attention_plain(q, k, v, num_heads: int):
+    """Plain version of K1's attention launch: q, k, v (..., N, C) with head h
+    at columns h D .. h D + D - 1; the exact row max, P rounded to v's dtype
+    before P V, then / the sum of the unrounded p (K6's function per head)."""
+    *lead, N, C = q.shape
+    D = C // num_heads
+
+    def heads(t):
+        return t.reshape(-1, N, num_heads, D).transpose(1, 2)
+
+    logits = torch.einsum("bhqd,bhkd->bhqk", heads(q).float(), heads(k).float()) * D ** -0.5
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), heads(v).float())
+    o = o / p.sum(dim=-1, keepdim=True)
+    return o.to(q.dtype).transpose(1, 2).reshape(*lead, N, C)
+
+
+def _site_attention_cuda(q, k, v, num_heads):
+    """K1's attention launch on contiguous bf16 q, k, v (..., N, C), D = 64:
+    the EXACT policy of csrc/sm90_attention.cuh, K6's per-block code."""
+    N, C = q.shape[-2:]
+    o = torch.empty_like(q)
+    _lib.check(_lib.library().a3r_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.numel() // (N * C), N, C,
+        num_heads, (C // num_heads) ** -0.5, _lib.stream()), "K1 attention")
+    return o
+
+
+def site_attention(q, k, v, num_heads: int):
+    """K1's attention launch alone, on (..., N, C) bf16 tensors with the
+    heads side by side (D = 64) on the card; its plain version on the CPU.
+    The site's counter (attention_site.launches) counts whole sites, so this
+    counts nothing."""
+    if not q.is_cuda:
+        return site_attention_plain(q, k, v, num_heads)
+    _check_cuda("K1 attention", dict(q=q, k=k, v=v), {})
+    if q.shape != k.shape or k.shape != v.shape or q.shape[-1] != 64 * num_heads:
+        raise ValueError(f"K1's attention needs q, k, v of one shape (..., N, 64 H); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{num_heads} heads")
+    return _site_attention_cuda(*(_lib.dense(t) for t in (q, k, v)), num_heads)
+
+
 def _site_cuda(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
                num_heads, ln_q, ln_kv, residual):
     G, B, N, C = xq.shape
@@ -159,10 +204,7 @@ def _site_cuda(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
     q = gemm(xn, wq, bq, _EPI_ROPE)
     k = gemm(kvn, wk, bk, _EPI_ROPE)
     v = gemm(kvn, wv, bv, _EPI_BIAS)
-    o = torch.empty_like(q)
-    _lib.check(lib.a3r_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), G * B, N, C, num_heads,
-                                 D ** -0.5, s), "K1 attention")
+    o = _site_attention_cuda(q, k, v, num_heads)
     if residual:
         return gemm(o, wo, bo, _EPI_RESID, resid=xq)
     return gemm(o, wo, bo, _EPI_BIAS)

@@ -1,0 +1,170 @@
+"""Profile K1's attention sites on one GPU, by launch, and the serving engine.
+
+    python -m align3r_tpu_torch.tools.profile_site [--out build/site_profile.json]
+        [--engine]
+
+Runs K1 (``ops.fused_site.attention_site``) at the serving path's three
+shapes, from seeded random bf16 inputs and weights at 512x288 (576 tokens):
+the encoder's self site (1 stream x 16 images, C = 1024, 16 heads) and the
+decoder's self and cross sites (2 streams x 32 pairs, C = 768, 12 heads),
+each with LayerNorm and the residual, as ``chip_smoke.py``'s kernels phase
+does. Per site it reports:
+- the site's device time from a CUDA graph of 10 calls (CUDA events);
+- its split by launch from torch.profiler over 10 eager calls: LayerNorm,
+  the q/k GEMMs (bias + RoPE epilogue), the v GEMM (bias), attention, the
+  out-projection GEMM (bias + residual) and anything else (dtype
+  conversions of the biases), in device ms per site.
+With ``--engine`` it also builds VIT_L_512 from seeded weights and times the
+serving engine (``inference.engine.inference``) on ``chip_smoke.py``'s 24
+synthetic frames (190 pairs, batch 32): two warm runs, pairs/s of each.
+It prints the card's name and power limit and one JSON line, and writes the
+same JSON to --out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+
+# (part, substrings of the kernel's name); first match wins
+PARTS = (("layernorm", ("layernorm",)),
+         ("q/k GEMMs (bias + RoPE)", ("gemm_kernel<1>",)),
+         ("v GEMM (bias)", ("gemm_kernel<0>",)),
+         ("out-projection GEMM (bias + residual)", ("gemm_kernel<3>",)),
+         ("attention", ("attention",)))
+SITES = (("encoder self", 1, 16, 1024, 16, False),
+         ("decoder self", 2, 32, 768, 12, False),
+         ("decoder cross", 2, 32, 768, 12, True))
+
+
+def part(name: str) -> str:
+    for label, keys in PARTS:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of fn() replayed from one CUDA graph of `reps` calls."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def profile_site(dev, gen, name, G, B, C, H, cross, reps: int = 10) -> dict:
+    from align3r_tpu_torch.models.rope import make_grid_positions
+    from align3r_tpu_torch.ops import fused_site as fs
+    bf = torch.bfloat16
+    rnd = lambda *s, sc=1.0, dt=bf: (torch.randn(*s, generator=gen, device=dev) * sc).to(dt)
+    pos = make_grid_positions(288 // 16, 512 // 16, device=dev)
+    N = pos.shape[0]
+    x = rnd(G, B, N, C)
+    kv = rnd(G, B, N, C) if cross else x
+    w = [rnd(G, C, C, sc=C ** -0.5) for _ in range(4)]
+    b = [rnd(G, C, sc=0.1, dt=torch.float32) for _ in range(4)]
+    ln = lambda: (1 + rnd(G, C, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32))
+    lnq, lnkv = ln(), (ln() if cross else "same")
+    site = lambda: fs.attention_site(x, kv, *w, *b, pos, H, 100.0, ln_q=lnq, ln_kv=lnkv,
+                                     residual=True)
+    for _ in range(3):
+        site()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            site()
+        torch.cuda.synchronize()
+    split, names = defaultdict(float), defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            split[part(e.name)] += e.device_time / 1e3 / reps
+            names[e.name[:100]] += e.device_time / 1e3 / reps
+    total = sum(split.values())
+    return {"site": f"{name} G={G} B={B} N={N} C={C} H={H}",
+            "graph_ms": graph_ms(site), "kernel_sum_ms": total,
+            "split_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])),
+            "split_share": {k: v / total for k, v in split.items()},
+            "kernels_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
+
+
+def engine_rates(dev) -> dict:
+    """Two warm runs of the serving engine at VIT_L_512 on 24 synthetic
+    512x288 frames (190 pairs, batch 32)."""
+    import numpy as np
+    from align3r_tpu_torch.geometry.core import pixel_to_pointcloud
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.config import VIT_L_512
+    n, H, W = 24, 288, 512
+    with torch.device(dev):
+        model = Align3R(VIT_L_512)
+    init_align3r_(model, seed=0)
+    with torch.no_grad():
+        gz = torch.Generator(device=dev).manual_seed(1)
+        for z in model.zero_convs:
+            z[0].weight.copy_(torch.randn(z[0].weight.shape, generator=gz, device=dev) * 0.02)
+        for h in (model.downstream_head1, model.downstream_head2):
+            h.dpt.head[4].weight.mul_(0.01)
+    pm = model.prepare(torch.bfloat16, torch.bfloat16)
+    del model
+    rng = np.random.default_rng(0)
+    imgs = rng.uniform(-1, 1, (n, H, W, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    depth = torch.from_numpy((2.0 + 0.5 * np.sin(xx / 60) + 0.3 * np.cos(yy / 45))
+                             .astype(np.float32))
+    priors = np.stack([pixel_to_pointcloud(depth, 500.0).numpy()] * n)
+    pairs = make_pairs(n, "swinstride-5-noncyclic", symmetrize=True)
+    inference(pairs, pm, imgs, priors, batch_size=32)   # cold: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        inference(pairs, pm, imgs, priors, batch_size=32)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"pairs": len(pairs), "engine_s": secs, "pairs_per_s": [len(pairs) / s for s in secs]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default="build/site_profile.json")
+    ap.add_argument("--engine", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_site needs a CUDA device")
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"card": card, "sites": [profile_site(dev, gen, *s) for s in SITES]}
+    if args.engine:
+        res["engine"] = engine_rates(dev)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,10 +11,14 @@ final result line:
                 each kernel's registers and spill bytes (ptxas -v).
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
-                stated tolerance, and the time of each side (CUDA events; the
-                bf16 attention forwards K6 and K9, and the library call beside
-                them, replayed from a CUDA graph, since their wrappers' host
-                time is about their kernels' time).
+                stated tolerance, and the time of each side (CUDA events; K1
+                and K2 sites, the bf16 attention forwards K6 and K9 and the
+                library call beside them replayed from a CUDA graph, since a
+                wrapper's host time can match its kernels'; K9's backward and
+                SDPA's as the sum of their kernels' device time under
+                torch.profiler). K1's attention launch alone is held to K6 bit
+                for bit on the same heads laid out per head, and timed beside
+                K6 and SDPA on that layout.
   4. parity   - a small model, a small solve and the flow term (gate off) run
                 on the card and on the CPU, from the same seeded weights and
                 inputs; they must agree.
@@ -67,8 +71,8 @@ final result line:
                 ones moved, checkpoint-final.pth reloads strictly.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base), K8 (the head tail at the main path's shape, and fp32) and K9
-(forward and backward at the 512x512 training shapes, a ragged length, fp32
-and D = 128) to their plain versions. Then the card line as nvidia-smi
+(forward and backward at the 512x512 training shapes, a ragged length, fp32,
+D = 128 and D = 256) to their plain versions. Then the card line as nvidia-smi
 prints it, one JSON line with the kernels (time, plain time, bound, launches
 on their path, library-call time), and last {"ok": true, "device": {...}}.
 The process fails if jax or the JAX package (align3r_tpu) was imported.
@@ -155,6 +159,27 @@ def graph_time(fn, reps: int):
     return t0.elapsed_time(t1) / reps
 
 
+def device_time(fn, reps: int):
+    """Mean device milliseconds of fn() over `reps` calls: the sum of the
+    kernels' times under torch.profiler, without the gaps between them.
+    For a call that cannot be captured in a CUDA graph (autograd's backward
+    of a library op), timed the same way as the kernel it is held against."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total / 1e3 / reps
+
+
 def ratios(row):
     """The row with ms / library_ms and bound_ms / ms beside its numbers."""
     if row.get("library_ms"):
@@ -179,11 +204,47 @@ def bound(nbytes, ops, peak):
 
 # ----------------------------------------------------------------- phase 3
 
+def check_site_attention(dev, gen, name, rows, N, C, Hh):
+    """K1's attention launch alone at a site's shape, (rows, N, C) bf16 with
+    the heads side by side, against K6 on the same values laid out per head
+    (rows, H, N, 64): bit-identical. Beside it, K6 and SDPA on the per-head
+    layout; all three timed from a CUDA graph (`_eager`: one by one)."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+    q, k, v = (torch.randn(rows, N, C, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    per_head = lambda t: t.reshape(rows, N, Hh, C // Hh).transpose(1, 2).contiguous()
+    qh, kh, vh = per_head(q), per_head(k), per_head(v)
+    kern = lambda: fs.site_attention(q, k, v, Hh)
+    k6 = lambda: sa.small_attention(qh, kh, vh)
+    lib = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+    out, ref6 = kern(), k6()
+    ref = fs.site_attention_plain(q, k, v, Hh)
+    torch.cuda.synchronize()
+    same = torch.equal(per_head(out), ref6)
+    err, rel, scale = max_err(out, ref)
+    b_ms, b_by = bound(4 * rows * N * C * 2, 4 * rows * N * N * C, PEAK_BF16)
+    row = ratios(dict(
+        kernel="K1", shape=f"{name} attention launch alone ({rows}, {N}, {C}) H={Hh}",
+        max_abs_err=err, max_rel_err=rel, tol=f"bits of K6; plain {1.6e-2 * scale:.3g}",
+        ok=same and err <= 1.6e-2 * scale, bits_of_k6=same, ms=graph_time(kern, 20),
+        ms_eager=cuda_time(kern, 20), plain_ms=cuda_time(lambda: fs.site_attention_plain(
+            q, k, v, Hh), 3), k6_ms=graph_time(k6, 20), library_ms=graph_time(lib, 20),
+        bound_ms=b_ms, bound_by=b_by))
+    row["ms_over_k6"] = row["ms"] / row["k6_ms"]
+    return row
+
+
 def check_sites(dev, gen):
     """K1 and K2 against their plain versions at the main path's shapes.
     Tolerance: 2 bf16 ulps at the output's largest magnitude (1.6e-2 x
     max|plain|); the two sides round q, k, v, P and the output to bf16 at the
-    same points but accumulate in a different order."""
+    same points but accumulate in a different order. Timed from a CUDA graph
+    (device time; `_eager`: launched one by one). Beside the encoder's and
+    the decoder's self site, K1's attention launch alone
+    (check_site_attention)."""
     import torch
     from align3r_tpu_torch.ops import fused_site as fs
     bf = torch.bfloat16
@@ -219,7 +280,7 @@ def check_sites(dev, gen):
         torch.cuda.synchronize()
         err, rel, scale = max_err(out, ref)
         ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
-        ms, pms = cuda_time(kern, 10), cuda_time(plain, 3)
+        ms, ms_eager, pms = graph_time(kern, 10), cuda_time(kern, 10), cuda_time(plain, 3)
         act = G * Bn * N * C * 2
         nbytes = (act * (3 if cross else 2) + 4 * G * C * C * 2 + 4 * G * C * 4
                   + (2 if cross else 1) * 2 * G * C * 4 + 2 * N * (C // Hh) * 2)
@@ -227,8 +288,11 @@ def check_sites(dev, gen):
                            PEAK_BF16)
         rows.append(dict(kernel="K1", shape=f"{name} G={G} B={Bn} N={N} C={C} H={Hh}",
                          max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by))
+                         ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by))
         del x, kv, w, out, ref
+        if not cross:
+            rows.append(check_site_attention(dev, gen, name, G * Bn, N, C, Hh))
     for name, G, Bn, C in (("encoder mlp", 1, 16, 1024), ("decoder mlp", 2, 32, 768)):
         N = pos.shape[0]
         F = 4 * C
@@ -243,13 +307,14 @@ def check_sites(dev, gen):
         torch.cuda.synchronize()
         err, rel, scale = max_err(out, ref)
         ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
-        ms, pms = cuda_time(kern, 10), cuda_time(plain, 3)
+        ms, ms_eager, pms = graph_time(kern, 10), cuda_time(kern, 10), cuda_time(plain, 3)
         nbytes = (2 * G * Bn * N * C * 2 + 2 * G * C * F * 2 + G * (F + C) * 4
                   + 2 * G * C * 4)
         b_ms, b_by = bound(nbytes, 4 * G * Bn * N * C * F, PEAK_BF16)
         rows.append(dict(kernel="K2", shape=f"{name} G={G} B={Bn} N={N} C={C} F={F}",
                          max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by))
+                         ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by))
         del x, w1, w2, out, ref
     return rows
 
@@ -461,14 +526,20 @@ def check_k9(dev, gen):
     """K9's forward and backward against their plain versions at the 512x512
     training shapes (the encoder's 4 images x 16 heads, the decoder's and
     prior branch's 4 x 12 heads, 1024 tokens, D = 64, bf16), a ragged length
-    (1000), fp32, and D = 128. The backward is held on the same (o, lse, dO).
+    (1000), fp32, D = 128 and D = 256 (whose backward keeps the WMMA
+    kernels). The backward is held on the same (o, lse, dO).
     Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max) in bf16: both round P
     against the same running max over the same key blocks, block_k (and P,
     dS to bf16 in the backward), summed in another order; 1e-4 x max in fp32.
     Beside each, scaled_dot_product_attention on the same inputs (forward;
-    and its backward alone, timed on a retained graph), which the port never
+    and its backward alone, on a retained graph), which the port never
     calls. The forwards are timed from a CUDA graph (device time; `_eager`:
-    launched one by one), the backwards one by one."""
+    launched one by one). The backwards, K9's and SDPA's alike, are timed as
+    the sum of their kernels' device time under torch.profiler (autograd's
+    backward cannot be captured in a graph); K9's also from a CUDA graph
+    (`ms_graph`) and one by one (`ms_eager`, SDPA's `library_ms_eager`).
+    Both backwards run 7 products where the bound counts 5 (S and dP are
+    recomputed in both of K9's kernels)."""
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import flash_attention as fa
@@ -477,7 +548,8 @@ def check_k9(dev, gen):
                             ("decoder / prior", (4, 12, 1024, 64), torch.bfloat16),
                             ("ragged", (4, 16, 1000, 64), torch.bfloat16),
                             ("fp32", (4, 16, 1024, 64), torch.float32),
-                            ("D=128", (4, 8, 1024, 128), torch.bfloat16)):
+                            ("D=128", (4, 8, 1024, 128), torch.bfloat16),
+                            ("D=256", (4, 4, 1024, 256), torch.bfloat16)):
         q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(dt) for _ in range(4))
         (o, lse), (ro, rlse) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_plain(q, k, v)
         grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do)
@@ -510,16 +582,18 @@ def check_k9(dev, gen):
             plain_ms=cuda_time(lambda: fa.flash_attention_plain(q, k, v), 3),
             library_ms=graph_time(lib, 20), library_ms_eager=cuda_time(lib, 20),
             bound_ms=fb_ms, bound_by=fb_by)))
+        kb = lambda: fa.flash_attention_bwd(q, k, v, ro, rlse, do)
+        lb = lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True)
         rows.append(ratios(dict(kernel="K9 bwd", shape=tag, max_abs_err=max(e[0] for e in eb),
                          max_rel_err=max(e[1] for e in eb),
                          tol=f"{rel_tol} x max (dq {eb[0][2]:.3g}, dk {eb[1][2]:.3g}, "
                              f"dv {eb[2][2]:.3g})", ok=ok_b,
-                         ms=cuda_time(lambda: fa.flash_attention_bwd(q, k, v, ro, rlse, do), 10),
+                         ms=device_time(kb, 10), ms_graph=graph_time(kb, 10),
+                         ms_eager=cuda_time(kb, 10),
                          plain_ms=cuda_time(
                              lambda: fa.flash_attention_bwd_plain(q, k, v, ro, rlse, do), 3),
-                         library_ms=cuda_time(lambda: torch.autograd.grad(
-                             so, (qs, ks, vs), do, retain_graph=True), 10),
-                         bound_ms=bb_ms, bound_by=bb_by)))
+                         library_ms=device_time(lb, 10), library_ms_eager=cuda_time(lb, 10),
+                         products_run=7, products_bound=5, bound_ms=bb_ms, bound_by=bb_by)))
         del q, k, v, do, o, ro, grads, refs, so, qs, ks, vs
     return rows
 
@@ -1275,6 +1349,12 @@ def main() -> int:
         long_stats["k9_fwd_share_est"] = k9_ms / long_stats["warm_ms_per_micro_step"]
         print(f"long: K9 forward {k9_ms:.3f} ms per micro-step, "
               f"{100 * long_stats['k9_fwd_share_est']:.1f}% of it", flush=True)
+        # the backward's: 28 decoder-shaped backwards per micro-step (the
+        # encoder is frozen)
+        k9b = {r["shape"].split(" (")[0]: r["ms"] for r in rows if r["kernel"] == "K9 bwd"}
+        long_stats["k9_bwd_ms_est"] = 28 * k9b["decoder / prior"]
+        print(f"long: K9 backward {long_stats['k9_bwd_ms_est']:.3f} ms per micro-step",
+              flush=True)
     except Exception:
         traceback.print_exc()
         return fail(phase, "exception (traceback above)")
@@ -1314,9 +1394,11 @@ def main() -> int:
                         "library_ms": mine[0].get("library_ms"),
                         "shape": mine[0]["shape"],
                         "checks": [{k2: r.get(k2) for k2 in (
-                            "shape", "ms", "ms_eager", "ms_unsorted", "plain_ms", "library_ms",
-                            "library_ms_eager", "ms_over_library", "bound_over_ms",
-                            "xla_chain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                            "shape", "ms", "ms_eager", "ms_graph", "ms_unsorted", "plain_ms",
+                            "library_ms", "library_ms_eager", "ms_over_library", "k6_ms",
+                            "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
+                            "products_bound", "xla_chain_ms", "bound_ms", "bound_by",
+                            "max_abs_err")}
                                    for r in mine]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,

@@ -14,8 +14,11 @@ counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
 padded with zeros (8, 40, 128), one key (the P V product alone) and one key
 tile against V = I (the first product alone); for K9, sequence lengths that
 are not a multiple of its 128-, 64- or 32-row tiles at every head dim it
-takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards, two
-launches that give the same bits; for K7 and
+takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards and
+K9's bf16 backward, two launches that give the same bits; for that backward
+(D = 64 and 128), a single live query row (dV = P^T dO shows P^T) and Q or
+K = 0 (uniform P: the transposed operands alone); for K1's attention
+launch, K6's bits on the same heads laid out per head; for K7 and
 K8, pixel counts that are not a multiple of the 128-pixel conv tile.
 Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
 K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
@@ -436,6 +439,112 @@ def test_flash_attention_kernels(dev, dtype, shape):
     fa.flash_attention(*leaves).backward(do)
     assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
         before[0] + 2, before[1] + 2)
+
+
+# (B, H, N, D): ragged lengths at both head dims of the sm90 backward, with
+# 16 query tiles (N = 1000) or one ragged tile (N = 77) per key tile
+@pytest.mark.parametrize("shape", [(1, 3, 1000, 64), (2, 2, 77, 64), (1, 3, 1000, 128),
+                                   (2, 2, 77, 128)])
+def test_flash_attention_bwd_sm90(dev, shape):
+    """K9's bf16 backward on the warpgroup-MMA core (D = 64 and 128) against
+    flash_attention_bwd_plain on the plain forward's (o, lse)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_plain(q, k, v)
+    before = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert fa.flash_attention_bwd.launches == before + 1
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, refs):
+        _close(a, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_single_query_row(dev, D):
+    """dO is zero but for query row 37: dV = P^T dO is P's row 37 (one query
+    column of P^T per key) times dO's row, so each key's P^T entry is held
+    to the plain version (the column's lse2 and Di read from the staged
+    vectors), across four key tiles and a ragged one."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    shape = (1, 2, 300, D)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    do = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
+    do[:, :, 37] = torch.randn(1, 2, D, generator=g, device=dev).to(torch.bfloat16)
+    o, lse = fa.flash_attention_plain(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, r in zip(grads, refs):
+        _close(a, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("zero", ["q", "k"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_uniform_p(dev, zero, D):
+    """Q = 0 or K = 0 makes S = 0 and P uniform (1/N), so the products that
+    take a transposed operand stand alone: dV = P^T dO, and dQ = dS K (K = 0:
+    dK = dS^T Q) against the plain version; the gradient through the zero
+    operand is exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    shape = (2, 2, 200, D)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    if zero == "q":
+        q = torch.zeros_like(q)
+    else:
+        k = torch.zeros_like(k)
+    o, lse = fa.flash_attention_plain(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    rq, rk, rv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    _close(dv, rv, torch.bfloat16)
+    if zero == "q":
+        _close(dq, rq, torch.bfloat16)
+        assert torch.equal(dk, torch.zeros_like(dk))
+    else:
+        _close(dk, rk, torch.bfloat16)
+        assert torch.equal(dq, torch.zeros_like(dq))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bwd_is_deterministic(dev, D):
+    """Two launches of the bf16 backward give the same bits (two kernels, no
+    atomics)."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, k, v, do = (torch.randn(2, 5, 1000, D, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("grid", [(5, 8), (9, 16), (16, 32)])
+def test_site_attention_is_k6_per_head(dev, cross, grid):
+    """K1's attention launch on (G, B, N, C) gives K6's bits on the same
+    values laid out as (G B, H, N, D): q from one token set, k and v from the
+    same (self) or another (cross), N = 40, 144 or 512 (not multiples of the
+    64-row tiles but the last)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    G, B, H = 2, 3, 3
+    C, N = 64 * H, grid[0] * grid[1]
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+    x = rnd(G, B, N, C)
+    kv = rnd(G, B, N, C) if cross else x
+    w = [rnd(C, C) * C ** -0.5 for _ in range(3)]
+    q, k, v = ((t @ wi).to(torch.bfloat16) for t, wi in zip((x, kv, kv), w))
+    before = fs.attention_site.launches
+    out = fs.site_attention(q, k, v, H)
+    assert fs.attention_site.launches == before and out.shape == q.shape
+    per_head = lambda t: t.reshape(G * B, N, H, 64).transpose(1, 2).contiguous()
+    ref = sa.small_attention(per_head(q), per_head(k), per_head(v))
+    torch.cuda.synchronize()
+    assert torch.equal(per_head(out), ref)
+    _bf16_close(out, fs.site_attention_plain(q, k, v, H))
 
 
 def test_flash_attention_refuses_unsupported(dev):

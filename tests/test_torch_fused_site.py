@@ -173,6 +173,32 @@ def test_mlp_plain_matches_pallas_interpret(nf, monkeypatch):
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_site_attention_plain_is_k6_per_head(dtype):
+    """K1's attention launch computes K6's function on each head: its plain
+    version on (G, B, N, C) with the heads side by side equals K6's plain
+    version on the heads laid out as (G B, H, N, D) bit for bit, and JAX's K6
+    Pallas kernel in interpret mode (1e-5 in fp32, 2 bf16 ulps of the largest
+    output in bf16, as above)."""
+    from align3r_tpu.ops import small_attention as jsa
+    from align3r_tpu_torch.ops import small_attention as tsa
+    tdt, jdt = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    r = np.random.default_rng(7)
+    q, k, v = (r.standard_normal((G, B, N, C)).astype(np.float32) for _ in range(3))
+    per_head = lambda a: a.reshape(G * B, N, H, D).swapaxes(1, 2)
+    got = tfs.site_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), H)
+    k6 = tsa.small_attention_plain(*(torch.from_numpy(np.ascontiguousarray(per_head(a))).to(tdt)
+                                     for a in (q, k, v)))
+    assert torch.equal(got.reshape(G * B, N, H, D).transpose(1, 2), k6)
+    ref = np.asarray(jsa.small_attention(*(jnp.asarray(per_head(a), jdt) for a in (q, k, v)))
+                     .astype(jnp.float32))
+    got = per_head(got.float().numpy())
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert np.abs(got - ref).max() <= 1.6e-2 * np.abs(ref).max()
+
+
 def test_cuda_wrappers_refuse_unsupported_inputs():
     """The CUDA paths validate before they build or launch anything: an fp32
     tensor is refused (checked on the shape-validation helpers directly,
