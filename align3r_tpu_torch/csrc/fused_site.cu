@@ -12,19 +12,22 @@
 // The TPU kernel's (C, N)-transposed layout and head streaming exist for
 // sublane tiling and are not carried over. Here a site is:
 //   layernorm_kernel (one warp per token row, fp32 statistics, eps 1e-6)
-//   gemm_kernel<EPI_BIAS_ROPE> for q and k, gemm_kernel<EPI_BIAS> for v
+//   gemm_sm90<EPI_BIAS_ROPE> for q and k, gemm_sm90<EPI_BIAS> for v
 //   site_attention_sm90 (one warpgroup per (row, head, 64-query tile))
-//   gemm_kernel<EPI_BIAS_RESID | EPI_BIAS> for the out-projection,
-// and an MLP site is layernorm -> gemm<EPI_BIAS_GELU> -> gemm<EPI_BIAS_RESID>.
+//   gemm_sm90<EPI_BIAS_RESID | EPI_BIAS> for the out-projection,
+// and an MLP site is layernorm -> gemm_sm90<EPI_BIAS_GELU> ->
+// gemm_sm90<EPI_BIAS_RESID | EPI_BIAS>.
 //
 // GELU uses erff (CUDA's erf, max error 2 ulp); the TPU kernel used the
 // Abramowitz-Stegun polynomial (fused_site.py:224-239, |err| < 1.5e-7), so
 // the two differ by at most about 1.5e-7 before rounding to bf16.
 //
 // What bounds it on the H100: the projections and MLP products are
-// compute-bound GEMMs (see gemm.cuh; 16 x 16 WMMA, their redesign is next).
-// Attention at N = 576, D = 64 is small (about 15% of a site's FLOPs) and
-// runs on the EXACT policy of sm90_attention.cuh, K6's per-block code on the
+// operations-bound GEMMs, about 85% of a site's FLOPs. They run on the
+// Hopper GEMM core of gemm.cuh (persistent and ping-pong: a TMA-fed ring,
+// wgmma with register accumulators, the epilogues in registers, TMA stores);
+// what bounds that core is written there. Attention at N = 576, D = 64 is small (about 15% of a
+// site's FLOPs) and runs on the EXACT policy of sm90_attention.cuh, K6's per-block code on the
 // (rows, N, C) layout: two passes over TMA-fed 64-key tiles, the exact row
 // max from the first, P rounded to bf16 against it in registers in the
 // second, exactly as _kernel:139-145 does, at the price of computing q k^T
@@ -109,22 +112,30 @@ A3R_EXPORT int a3r_layernorm(const void* x, const void* scale, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// C (G, M, N) = epilogue(A (G, M, K) @ W (G, K, N)) on gemm.cuh's core, all
+// bf16, contiguous and 16-byte aligned; bias (G, N) fp32, 16-byte aligned (a
+// bulk copy brings each tile's slice); resid like C (EPI_BIAS_RESID); cos,
+// sin (rope_n, 64) bf16 (EPI_BIAS_ROPE, rope_d = 64). K % 64 == 0 and
+// N % 128 == 0; any M >= 1.
 A3R_EXPORT int a3r_gemm(const void* A, const void* W, const void* bias,
                         const void* resid, void* C, const void* cos,
                         const void* sin, int G, int M, int N, int K, int epi,
                         int rope_d, int rope_n, void* stream) {
-  if (K % GBK || N % GBN) return (int)cudaErrorInvalidValue;
-  GemmArgs p{(const bf16*)A, (const bf16*)W, (const float*)bias,
-             (const bf16*)resid, (bf16*)C, (const bf16*)cos, (const bf16*)sin,
-             M, N, K, rope_d, rope_n};
+  if (G < 1 || M < 1 || K < GBK || K % GBK || N < GBN || N % GBN || bias == nullptr ||
+      (uintptr_t)bias % 16 || (long long)G * ((M + GBM - 1) / GBM) * (N / GBN) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (epi == EPI_BIAS_ROPE &&
+      (rope_d != GEMM_ROPE_D || rope_n < 1 || cos == nullptr || sin == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (epi == EPI_BIAS_RESID && resid == nullptr) return (int)cudaErrorInvalidValue;
+  const GemmArgs p{(const float*)bias, (const bf16*)resid, (const bf16*)cos,
+                   (const bf16*)sin, G, M, N, K, rope_n};
   cudaStream_t s = (cudaStream_t)stream;
   switch (epi) {
-    case EPI_BIAS: return (int)launch_gemm<EPI_BIAS>(p, G, s);
-    case EPI_BIAS_ROPE:
-      if (rope_d % 4 || GBN % rope_d) return (int)cudaErrorInvalidValue;
-      return (int)launch_gemm<EPI_BIAS_ROPE>(p, G, s);
-    case EPI_BIAS_GELU: return (int)launch_gemm<EPI_BIAS_GELU>(p, G, s);
-    case EPI_BIAS_RESID: return (int)launch_gemm<EPI_BIAS_RESID>(p, G, s);
+    case EPI_BIAS: return (int)launch_gemm<EPI_BIAS>(A, W, C, p, s);
+    case EPI_BIAS_ROPE: return (int)launch_gemm<EPI_BIAS_ROPE>(A, W, C, p, s);
+    case EPI_BIAS_GELU: return (int)launch_gemm<EPI_BIAS_GELU>(A, W, C, p, s);
+    case EPI_BIAS_RESID: return (int)launch_gemm<EPI_BIAS_RESID>(A, W, C, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

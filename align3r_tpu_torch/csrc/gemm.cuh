@@ -1,27 +1,63 @@
-// Tiled bf16 GEMM with fused epilogues, shared by the attention site (K1)
-// and the MLP site (K2).
+// The Hopper GEMM core of K1's projections and K2 (fused_site.cu), with its
+// epilogues fused:
 //
 //   C[g] = epilogue(A[g] @ W[g])     A (G, M, K) bf16 row-major,
 //                                    W (G, K, N) bf16 row-major ((in, out)
 //                                    as the JAX package stores kernels),
 //                                    C (G, M, N) bf16, fp32 accumulation.
 //
-// Block tile 128x128x32, 8 warps (2 x 4), each warp a 64x32 tile of
-// 16x16x16 WMMA bf16 -> fp32 fragments; a two-stage cp.async ring stages
-// the A/B tiles. The accumulator tile is staged through shared memory in
-// fp32 so the epilogue can reach any column of the tile, which the RoPE
-// epilogue needs (its partner column sits D/4 away inside the same head).
+// Persistent, ping-pong: one block per SM walks over the 128 x 128 tiles of
+// C in order, N fastest. A block is one producer warpgroup and two consumer
+// warpgroups; consumer w takes the block's tiles w, w + 2, ... whole.
+//   - The producer's first thread keeps a ring of GSTAGES (A, W) k-tiles in
+//     flight by TMA, behind full and empty mbarriers, in the block's tile
+//     order, and brings each tile's bias slice by a bulk copy. The two
+//     consumers' products alternate: a consumer starts tile i once the other
+//     has finished the products of tile i - 1 (an order mbarrier each), so
+//     while one runs its products the other runs its last tile's epilogue,
+//     and a consumer never waits on a stage more than one fill ahead of the
+//     producer (a parity wait could not tell the two apart). GBK = 64 bf16 is one
+//     128-byte swizzle row. The maps are 3-D, (K, M, G) for A and (N, K, G)
+//     for W, so rows past M are zero-filled per stream and a tile never reads
+//     the next stream's rows.
+//   - A consumer runs wgmma.m64n128k16 on both 64-row halves of its tile,
+//     A K-major and W an N-major B operand (the transpose bit, as V in P V),
+//     128 fp32 accumulators a thread. One k-tile's products stay in flight
+//     while the stage of the one before is handed back to the producer. The
+//     producer gives its registers to the consumers (setmaxnreg: 40 a thread
+//     against 232).
+//   - The epilogue runs on the accumulator fragment in registers. A thread
+//     holds columns 8 j + 2 (lane % 4) + {0, 1} of rows r and r + 8 of each
+//     half, so the RoPE partner D/4 = 16 columns away is its own register
+//     j +- 2 (a tile covers two whole 64-column heads). Bias (from the slice
+//     in shared memory), GELU, the residual and RoPE's cos / sin are per
+//     element. There is no fp32 tile in shared memory: the bf16 tile goes by
+//     stmatrix into the consumer's C buffer, as 64 x 64 boxes with the
+//     128-byte swizzle, and from there by TMA stores, which clip the rows
+//     past M and are waited for only before the buffer is written again.
+//   - A map that fails to encode or a refused launch is an error code; a copy
+//     that never lands traps after 4 s (mbar_wait).
 //
-// What bounds it: at the main path's shapes (M = B*N = 9k-18k rows, K, N =
-// 768-4096) the products are compute-bound; this simple mma.sync/WMMA form
-// reaches a fraction of the tensor-core peak that wgmma + TMA would (later
-// work). Requirements checked by the wrapper: K % 32 == 0, N % 128 == 0,
-// 16-byte aligned rows; M is masked.
+// What bounds it: at the main path's shapes (M = 9216 / 18432 rows; K, N
+// of 768 to 4096) every product is operations-bound, at 200 to 600 FLOP per
+// byte of A, W and C. Against that peak an SM loses the ring's fill at its
+// first tile and the last epilogue, the idle SMs of the last round where the
+// tiles are not a whole number of rounds of the 132 SMs, and what a 128 x 128
+// tile costs in L2-to-shared-memory traffic: 32 KB a k-tile for 2.1 MFLOP
+// (a 128 x 256 tile reads 48 KB for twice the work, but its 128 accumulators
+// a thread and the epilogue's operands exceed the registers once the two
+// warpgroups share a tile, and then no epilogue overlaps a product).
+//
+// Rounding order of the epilogues (bit for bit gemm_plain's,
+// ops/fused_site.py):
+//   EPI_BIAS        bf16(acc + bias)
+//   EPI_BIAS_ROPE   t = bf16(acc + bias), tp the partner's the same way;
+//                   bf16(bf16(t cos) + bf16(+-tp sin)), token = row % rope_n
+//   EPI_BIAS_GELU   bf16(gelu_erf(acc + bias))
+//   EPI_BIAS_RESID  bf16(resid + bf16(acc + bias))
 #pragma once
 
-#include <mma.h>
-
-#include "common.cuh"
+#include "sm90_ptx.cuh"
 
 namespace a3r {
 
@@ -32,153 +68,306 @@ enum Epilogue : int {
   EPI_BIAS_RESID = 3,  // bf16(resid + bf16(acc + bias))
 };
 
-constexpr int GBM = 128, GBN = 128, GBK = 32;
-constexpr int GLDA = GBK + 8;   // bf16 elements per A smem row
-constexpr int GLDB = GBN + 8;   // bf16 elements per B smem row
-constexpr int GLDC = GBN + 4;   // fp32 elements per C smem row
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_SMEM_AB = 2 * (GBM * GLDA + GBK * GLDB) * 2;
-constexpr int GEMM_SMEM_C = GBM * GLDC * 4;
-constexpr int GEMM_SMEM = GEMM_SMEM_AB > GEMM_SMEM_C ? GEMM_SMEM_AB : GEMM_SMEM_C;
+constexpr int GBM = 128;                   // rows of a tile: two wgmma halves of 64
+constexpr int GBN = 128;                   // columns of a tile
+constexpr int GBK = 64;                    // k of a stage: one 128-byte swizzle row
+constexpr int GSTAGES = 4;                 // depth of the (A, W) ring
+constexpr int GEMM_THREADS = 384;          // the producer and two consumer warpgroups
+constexpr int GEMM_PRODUCER_REGS = 40, GEMM_CONSUMER_REGS = 232;   // 64,512 of 65,536
+constexpr int GEMM_ROPE_D = 64;            // the RoPE epilogue's head dim
+
+struct GemmSmem {
+  static constexpr int AB = GBM * GBK * 2;     // the A tile of a stage
+  static constexpr int WB = GBK * GBN * 2;     // the W tile: two boxes of 64 x 64
+  static constexpr int STAGE = AB + WB;
+  static constexpr int CB = GBM * GBN * 2;     // a consumer's C tile: four boxes of 64 x 64
+  static constexpr int C0 = GSTAGES * STAGE;   // consumer w's at C0 + w CB
+  static constexpr int BIAS = C0 + 2 * CB;     // consumer w's fp32 bias slice at BIAS + w 512
+  // full, empty [GSTAGES]; bias full, empty [2]; products done [2]
+  static constexpr int BAR = BIAS + 2 * GBN * 4;
+  static constexpr int BYTES = BAR + (2 * GSTAGES + 6) * 8 + 1024;   // + the base's alignment
+  static_assert(STAGE % 1024 == 0 && CB % 1024 == 0, "tiles must keep 1024-byte alignment");
+};
 
 struct GemmArgs {
-  const bf16* A;
-  const bf16* W;
   const float* bias;   // (G, N) fp32
-  const bf16* resid;   // (G, M, N) for EPI_BIAS_RESID
-  bf16* C;
-  const bf16* cos;     // (rope_n, rope_d) token-major, EPI_BIAS_ROPE
+  const bf16* resid;   // (G, M, N), EPI_BIAS_RESID
+  const bf16* cos;     // (rope_n, 64) token-major, EPI_BIAS_ROPE
   const bf16* sin;
-  int M, N, K;
-  int rope_d;          // head dim (the partner column is rope_d / 4 away)
+  int G, M, N, K;
   int rope_n;          // tokens per sequence: row m is token m % rope_n
 };
 
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS) gemm_kernel(GemmArgs p) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + 2 * GBM * GLDA;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int g = blockIdx.z;
-  const int m0 = blockIdx.y * GBM;
-  const int n0 = blockIdx.x * GBN;
-  const int M = p.M, N = p.N, K = p.K;
-  const bf16* A = p.A + (size_t)g * M * K;
-  const bf16* W = p.W + (size_t)g * K * N;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 0..1: 64-row half
-  const int wn = warp & 3;   // 0..3: 32-column quarter
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  auto load_tile = [&](int stage, int k0) {
-    bf16* as = As + stage * GBM * GLDA;
-    bf16* bs = Bs + stage * GBK * GLDB;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // A: 128 rows x 4 chunks of 8
-      int c = tid + i * GEMM_THREADS;
-      int r = c >> 2, kc = (c & 3) * 8;
-      int gm = m0 + r;
-      const bf16* src = A + (size_t)(gm < M ? gm : M - 1) * K + k0 + kc;
-      cp_async16(as + r * GLDA + kc, src, gm < M ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // B: 32 rows x 16 chunks of 8
-      int c = tid + i * GEMM_THREADS;
-      int r = c >> 4, nc = (c & 15) * 8;
-      cp_async16(bs + r * GLDB + nc, W + (size_t)(k0 + r) * N + n0 + nc, 16);
-    }
-  };
-
-  const int nk = K / GBK;
-  load_tile(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load_tile((kt + 1) & 1, (kt + 1) * GBK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* as = As + (kt & 1) * GBM * GLDA;
-    const bf16* bs = Bs + (kt & 1) * GBK * GLDB;
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * 64 + i * 16) * GLDA + kk, GLDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * GLDB + wn * 32 + j * 16, GLDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+// The block's grid of tiles: (G, M / GBM, N / GBN), N fastest.
+struct GemmTiles {
+  int nn, nm, tiles, nk;
+  __device__ __forceinline__ GemmTiles(int G, int M, int N, int K)
+      : nn(N / GBN), nm((M + GBM - 1) / GBM), tiles(G * nm * nn), nk(K / GBK) {}
+  __device__ __forceinline__ void at(int t, int& g, int& m0, int& n0) const {
+    n0 = (t % nn) * GBN;
+    t /= nn;
+    m0 = (t % nm) * GBM;
+    g = t / nm;
   }
-  cp_async_wait<0>();
-  __syncthreads();
+};
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 64 + i * 16) * GLDC + wn * 32 + j * 16,
-                              acc[i][j], GLDC, wmma::mem_row_major);
-  __syncthreads();
-
-  const float* bias = p.bias + (size_t)g * N;
-  bf16* Cg = p.C + (size_t)g * M * N;
-  for (int idx = tid; idx < GBM * GBN; idx += GEMM_THREADS) {
-    const int r = idx / GBN, c = idx % GBN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M) continue;
-    float v = Cs[r * GLDC + c] + bias[gn];
-    float out;
-    if constexpr (EPI == EPI_BIAS) {
-      out = v;
-    } else if constexpr (EPI == EPI_BIAS_GELU) {
-      out = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-    } else if constexpr (EPI == EPI_BIAS_RESID) {
-      const bf16* R = p.resid + (size_t)g * M * N;
-      out = __bfloat162float(R[(size_t)gm * N + gn]) + bf16r(v);
-    } else {  // EPI_BIAS_ROPE
-      const int D = p.rope_d, q = D >> 2;
-      const int hd = gn % D;                  // position inside the head
-      const bool first = (hd % (D >> 1)) < q; // first quarter of its half
-      const int pc = first ? c + q : c - q;   // partner column (same tile)
-      const float t = bf16r(v);
-      const float tp = bf16r(Cs[r * GLDC + pc] + bias[first ? gn + q : gn - q]);
-      const float rot = first ? -tp : tp;
-      const int tok = gm % p.rope_n;
-      const float cs = __bfloat162float(p.cos[(size_t)tok * D + hd]);
-      const float sn = __bfloat162float(p.sin[(size_t)tok * D + hd]);
-      out = bf16r(t * cs) + bf16r(rot * sn);
-    }
-    Cg[(size_t)gm * N + gn] = __float2bfloat16(out);
-  }
+// the 1024-byte aligned base of the dynamic shared memory
+__device__ __forceinline__ uint32_t gemm_smem_base(const void* smem_raw) {
+  return (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
 }
 
 template <int EPI>
-inline cudaError_t launch_gemm(const GemmArgs& p, int G, cudaStream_t stream) {
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-    if (e != cudaSuccess) return e;
-    configured = true;
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+          const __grid_constant__ CUtensorMap tc, const GemmArgs p) {
+  using namespace sm90;
+  using L = GemmSmem;
+  constexpr int S = GSTAGES;
+  // barriers: full, empty [S]; bias full, empty [2]; products done [2]
+  constexpr int EMPTY = L::BAR + 8 * S, BFULL = EMPTY + 8 * S, BEMPTY = BFULL + 16,
+                DONE = BEMPTY + 16;
+  extern __shared__ unsigned char smem_raw[];
+  if (threadIdx.x == 0) {
+    const uint32_t base = gemm_smem_base(smem_raw);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(base + L::BAR + 8 * s, 1);
+      mbar_init(base + EMPTY + 8 * s, 4);   // the consuming warpgroup's four warps
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(base + BFULL + 8 * b, 1);
+      mbar_init(base + BEMPTY + 8 * b, 4);
+      mbar_init(base + DONE + 8 * b, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  dim3 grid(p.N / GBN, (p.M + GBM - 1) / GBM, G);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(p);
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {   // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<GEMM_PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const uint32_t base = gemm_smem_base(smem_raw), full = base + L::BAR;
+      const uint32_t empty = base + EMPTY, bfull = base + BFULL, bempty = base + BEMPTY;
+      const int N = p.N;
+      const GemmTiles tl(p.G, p.M, N, p.K);
+      int it = 0;   // k-tiles issued, over all of this block's tiles
+      for (int t = blockIdx.x, i = 0; t < tl.tiles; t += gridDim.x, ++i) {
+        int g, m0, n0;
+        tl.at(t, g, m0, n0);
+        const int b = i & 1;   // tile i's consumer
+        if (i >= 2) mbar_wait(bempty + 8 * b, ((i >> 1) - 1) & 1);
+        mbar_expect_tx(bfull + 8 * b, GBN * 4);
+        bulk_load(base + L::BIAS + b * GBN * 4, p.bias + (size_t)g * N + n0, GBN * 4,
+                  bfull + 8 * b);
+        for (int kt = 0; kt < tl.nk; ++kt, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+          const uint32_t sa = base + s * L::STAGE, bar = full + 8 * s;
+          mbar_expect_tx(bar, L::STAGE);
+          tma_load(sa, &ta, bar, kt * GBK, m0, g);
+          tma_load(sa + L::AB, &tw, bar, n0, kt * GBK, g);
+          tma_load(sa + L::AB + GBK * 128, &tw, bar, n0 + 64, kt * GBK, g);
+        }
+      }
+    }
+  } else {   // consumer wg: the block's tiles wg, wg + 2, ...
+    setmaxnreg_inc<GEMM_CONSUMER_REGS>();
+    const uint32_t tid = threadIdx.x;
+    const uint32_t base = gemm_smem_base(smem_raw), full = base + L::BAR;
+    const uint32_t empty = base + EMPTY, bfull = base + BFULL, bempty = base + BEMPTY;
+    const uint32_t done = base + DONE;
+    const int M = p.M, N = p.N;
+    const GemmTiles tl(p.G, M, N, p.K);
+    const int nk = tl.nk, warp = tid >> 5, lane = tid & 31;
+    const int wg = warp >> 2, wl = warp & 3, c = 2 * (lane & 3);
+    const uint32_t cbase = base + L::C0 + wg * L::CB;
+    const float* bias = reinterpret_cast<const float*>(
+                            smem_raw + (base - smem_addr(smem_raw)) + L::BIAS) + wg * GBN + c;
+    const bool issuer = wl == 0 && lane == 0;   // this consumer's TMA stores
+    for (int t = blockIdx.x + wg * gridDim.x, i = wg; t < tl.tiles; t += 2 * gridDim.x, i += 2) {
+      int g, m0, n0;
+      tl.at(t, g, m0, n0);
+      float acc[2][GBN / 2];   // the two 64-row halves
+#pragma unroll
+      for (int e = 0; e < GBN / 2; ++e) acc[0][e] = acc[1][e] = 0.f;
+      // the other consumer's products of tile i - 1 (its ((i - 1) >> 1)-th tile) are done
+      if (i > 0) mbar_wait(done + 8 * (1 - wg), ((i - 1) >> 1) & 1);
+      for (int kt = 0, it = i * nk; kt < nk; ++kt, ++it) {
+        const int s = it % S;
+        const uint32_t sa = base + s * L::STAGE, sw = sa + L::AB;
+        mbar_wait(full + 8 * s, (it / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GBK / 16; ++kk) {   // A: k16 slice 32 bytes along a swizzle row;
+          const uint64_t bd = make_desc(sw + kk * 16 * 128, GBK * 128, 1024, 1);   // W: 16 rows down
+          Wgmma<GBN>::ss_t(acc[0], make_desc(sa + 32 * kk, 16, 1024, 1), bd);
+          Wgmma<GBN>::ss_t(acc[1], make_desc(sa + 64 * 128 + 32 * kk, 16, 1024, 1), bd);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();   // the previous k-tile's products are done: hand its stage back
+        if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      }
+      wgmma_wait<0>();
+      pin(acc[0]);
+      pin(acc[1]);
+      if (lane == 0) {
+        mbar_arrive(empty + 8 * ((i * nk + nk - 1) % S));   // the last stage
+        mbar_arrive(done + 8 * wg);
+      }
+
+      // ---- epilogue, in four chunks (64-row half hm, row half h), each its
+      // loads, bias and math after a pin of the half's accumulators (whose
+      // memory clobber keeps the next chunk's loads behind it): the registers
+      // beside the 128 accumulators stay few. acc[hm][4 j + 2 h + e] is row
+      // m0 + 64 hm + 16 wl + lane / 4 + 8 h, column n0 + 8 j + c + e. The bf16
+      // tile goes into this consumer's C buffer once the stores of its last
+      // tile have read it: box (hm, w) (rows 64 hm.., columns 64 w..) at
+      // cbase + (2 hm + w) 8 KB, row-major with the 128-byte swizzle. One
+      // stmatrix.x4 takes column groups j, j + 1 of both row halves h; lane l
+      // addresses row l % 8 of matrix l / 8 = (h, j + jj).
+      const int tok0 = EPI == EPI_BIAS_ROPE ? (m0 + 16 * wl + (lane >> 2)) % p.rope_n : 0;
+      mbar_wait(bfull + 8 * wg, (i >> 1) & 1);
+      if (issuer) tma_store_wait_read();
+      named_sync(1 + wg, 128);
+      const int mi = lane >> 3, ri = lane & 7;
+      const uint32_t row_off = (wl * 16 + (mi & 1) * 8 + ri) * 128;
+#pragma unroll
+      for (int hm = 0; hm < 2; ++hm) {
+        float* a = acc[hm];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          pin(acc[hm]);
+          const int row = m0 + 64 * hm + 16 * wl + (lane >> 2) + 8 * h;
+          // side[j]: the bf16 pair of the row at columns n0 + 8 j + c (resid),
+          // or of its token at head columns 8 j + c of cos (j < 8), sin (j >= 8)
+          uint32_t side[16];
+          if constexpr (EPI == EPI_BIAS_RESID) {
+            const bf16* R = p.resid + ((size_t)g * M + min(row, M - 1)) * N + n0 + c;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) side[j] = *reinterpret_cast<const uint32_t*>(R + 8 * j);
+          } else if constexpr (EPI == EPI_BIAS_ROPE) {
+            int tk = tok0 + 64 * hm + 8 * h;   // (row % rope_n), without a division per chunk
+            while (tk >= p.rope_n) tk -= p.rope_n;
+            const size_t tok = (size_t)tk * GEMM_ROPE_D + c;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              side[j] = *reinterpret_cast<const uint32_t*>(p.cos + tok + 8 * j);
+              side[8 + j] = *reinterpret_cast<const uint32_t*>(p.sin + tok + 8 * j);
+            }
+          }
+          const auto pair = [&](int j) {
+            return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&side[j]));
+          };
+#pragma unroll
+          for (int j = 0; j < GBN / 8; ++j) {
+            const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j);
+            a[4 * j + 2 * h] += bj.x;
+            a[4 * j + 2 * h + 1] += bj.y;
+          }
+          if constexpr (EPI == EPI_BIAS_GELU) {
+#pragma unroll
+            for (int j = 0; j < GBN / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = a[4 * j + 2 * h + e];
+                a[4 * j + 2 * h + e] = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+              }
+          } else if constexpr (EPI == EPI_BIAS_RESID) {
+#pragma unroll
+            for (int j = 0; j < GBN / 8; ++j) {
+              const float2 r = pair(j);
+              a[4 * j + 2 * h] = r.x + bf16r(a[4 * j + 2 * h]);
+              a[4 * j + 2 * h + 1] = r.y + bf16r(a[4 * j + 2 * h + 1]);
+            }
+          } else if constexpr (EPI == EPI_BIAS_ROPE) {
+            // in a 64-column head, column groups j % 8 = 0, 1 and 4, 5 are the
+            // first quarters of its halves, rotated against groups j + 2
+#pragma unroll
+            for (int jb = 0; jb < GBN / 8; jb += 8)
+#pragma unroll
+              for (int jq = 0; jq < 6; ++jq) {
+                if (jq == 2 || jq == 3) continue;
+                const int i1 = 4 * (jb + jq) + 2 * h, i2 = i1 + 8;   // i2: the partner, 16 columns on
+                const float2 c1 = pair(jq), s1 = pair(8 + jq), c2 = pair(jq + 2), s2 = pair(10 + jq);
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const float t1 = bf16r(a[i1 + e]), t2 = bf16r(a[i2 + e]);
+                  a[i1 + e] = bf16r(t1 * (e ? c1.y : c1.x)) + bf16r(-t2 * (e ? s1.y : s1.x));
+                  a[i2 + e] = bf16r(t2 * (e ? c2.y : c2.x)) + bf16r(t1 * (e ? s2.y : s2.x));
+                }
+              }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < GBN / 8; j += 2) {
+          const int jj = j + (mi >> 1);
+          stmatrix_x4(cbase + (2 * hm + (jj >> 3)) * (64 * 128) + row_off + (((jj & 7) ^ ri) << 4),
+                      pack_bf16(a[4 * j], a[4 * j + 1]), pack_bf16(a[4 * j + 2], a[4 * j + 3]),
+                      pack_bf16(a[4 * j + 4], a[4 * j + 5]), pack_bf16(a[4 * j + 6], a[4 * j + 7]));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bempty + 8 * wg);   // the bias slice is read
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+      if (issuer) {
+#pragma unroll
+        for (int hm = 0; hm < 2; ++hm)
+          if (m0 + 64 * hm < M) {
+            tma_store(&tc, cbase + 2 * hm * (64 * 128), n0, m0 + 64 * hm, g);
+            tma_store(&tc, cbase + (2 * hm + 1) * (64 * 128), n0 + 64, m0 + 64 * hm, g);
+          }
+        tma_store_commit();
+      }
+    }
+    if (issuer) tma_store_wait_all();
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+// The map of a contiguous (G, rows, cols) bf16 tensor as (cols, rows, G),
+// boxes of 64 columns x box_rows rows of one plane, 128-byte swizzle: a box
+// past a plane's last row is zero-filled on a load and clipped on a store.
+inline bool gemm_map(CUtensorMap* map, const void* ptr, int G, int rows, int cols, int box_rows) {
+  const sm90::EncodeTiled fn = sm90::encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The card's SM count: the persistent grid's size (0 if it cannot be read).
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// Launches gemm_sm90<EPI> on A (G, M, K), W (G, K, N) and C (G, M, N):
+// min(tiles, SMs) blocks.
+template <int EPI>
+cudaError_t launch_gemm(const void* A, const void* W, void* C, const GemmArgs& p,
+                        cudaStream_t stream) {
+  cudaError_t e = sm90::configure<gemm_sm90<EPI>>(GemmSmem::BYTES);
+  if (e != cudaSuccess) return e;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  CUtensorMap ta, tw, tc;
+  if (!gemm_map(&ta, A, p.G, p.M, p.K, GBM) || !gemm_map(&tw, W, p.G, p.K, p.N, GBK) ||
+      !gemm_map(&tc, C, p.G, p.M, p.N, 64))
+    return cudaErrorInvalidValue;
+  const long long tiles = (long long)p.G * ((p.M + GBM - 1) / GBM) * (p.N / GBN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  gemm_sm90<EPI><<<grid, GEMM_THREADS, GemmSmem::BYTES, stream>>>(ta, tw, tc, p);
   return cudaGetLastError();
 }
 

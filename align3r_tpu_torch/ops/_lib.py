@@ -9,7 +9,7 @@ The library is loaded with ``ctypes``: pointers and the stream are passed as
 ``c_void_p`` and every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception. ``ptxas -v`` reports each kernel's
 registers and spill bytes; the report is kept beside the library
-(``.log``). The TMA descriptors of the sm90 attention kernels are encoded
+(``.log``). The TMA descriptors of the sm90 attention and GEMM kernels are encoded
 through the runtime's driver entry point, so the link needs no ``-lcuda``.
 
 Nothing here runs at import time: the CPU tests import every module of the

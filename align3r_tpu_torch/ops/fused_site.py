@@ -10,12 +10,17 @@ K2 ``mlp_site`` replaces ``_mlp_kernel`` (:242) and ``_mlp_fblock_kernel``
 (:289): [LN] -> fc1 + bias -> exact-erf GELU -> fc2 + bias [+ residual].
 
 The CUDA implementation (csrc/fused_site.cu, csrc/gemm.cuh) runs each site as
-several hand-written launches: a LayerNorm kernel, tiled bf16 tensor-core
-GEMMs with fused epilogues (bias, bias + RoPE, bias + GELU, bias + residual)
-and an attention launch on the exact-max policy of csrc/sm90_attention.cuh,
-K6's per-block code on the (rows, N, C) layout (``site_attention``). What
-bounds it and what the design does about it is written at the top of those
-files.
+several hand-written launches: a LayerNorm kernel, GEMMs on one Hopper core
+with the epilogues fused (bias, bias + RoPE, bias + GELU, bias + residual;
+``gemm``: a TMA-fed ring, wgmma with register accumulators, the epilogues in
+registers, TMA stores) and an attention launch on the exact-max policy of
+csrc/sm90_attention.cuh, K6's per-block code on the (rows, N, C) layout
+(``site_attention``). Each launch has its plain version (``gemm_plain``,
+``site_attention_plain``, ``_ln``). ``site_plain`` / ``mlp_plain`` are
+built from ``_ln`` and ``gemm_plain``, with the Pallas kernel's attention
+step (``site_attention_step``, within an ulp of ``site_attention_plain``),
+so a site and its GEMM launches share one oracle. What bounds each launch
+and what the design does about it is written at the top of those files.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernels (and counts the launch on the wrapper's ``launches``) or raises for a
@@ -33,7 +38,10 @@ from align3r_tpu_torch.models.rope import rope_tables, rotate_halves
 from align3r_tpu_torch.ops import _lib
 from align3r_tpu_torch.ops.autograd import KernelWithTwin
 
-_EPI_BIAS, _EPI_ROPE, _EPI_GELU, _EPI_RESID = 0, 1, 2, 3
+# the GEMM's epilogues (csrc/gemm.cuh, enum Epilogue)
+EPI_BIAS, EPI_ROPE, EPI_GELU, EPI_RESID = 0, 1, 2, 3
+# its tile (gemm.cuh: GBM, GBN, GBK) and the head dim of its RoPE epilogue
+GEMM_BM, GEMM_BN, GEMM_BK, GEMM_ROPE_D = 128, 128, 64, 64
 
 
 def _check_cuda(what, bf16, fp32):
@@ -58,54 +66,143 @@ def _ln(x, p, eps: float = 1e-6):
     return (y * scale.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
 
 
-def _proj(x, w, b):
-    """bf16 x bf16 -> fp32 product + fp32 bias, rounded to x's dtype."""
-    t = torch.einsum("gbnc,gck->gbnk", x.float(), w.float())
-    return (t + b.float()[:, None, None]).to(x.dtype)
+def gemm_plain(a, w, bias, epi, resid=None, cos=None, sin=None, rope_d=0, rope_n=0):
+    """Plain version of one GEMM launch, in the kernel's rounding order:
+    a (G, ..., K) @ w (G, K, N) in fp32 + bias (G, N) fp32, then
+      EPI_BIAS   rounded to a's dtype;
+      EPI_ROPE   t rounded, then t cos + rotate_halves(t) sin per rope_d-wide
+                 head, each product and the sum in a's dtype, with the (rope_n,
+                 rope_d) tables' row (row index % rope_n) for each row;
+      EPI_GELU   exact-erf GELU in fp32, then rounded;
+      EPI_RESID  rounded, then resid + it in a's dtype.
+    Returns (G, ..., N) in a's dtype."""
+    G, K = a.shape[0], a.shape[-1]
+    lead = a.shape[1:-1]
+    t = torch.einsum("gmk,gkn->gmn", a.reshape(G, -1, K).float(), w.float())
+    t = t + bias.float()[:, None]
+    y = (torch.nn.functional.gelu(t, approximate="none") if epi == EPI_GELU else t)
+    y = y.to(a.dtype)
+    if epi == EPI_RESID:
+        y = resid.reshape(y.shape) + y
+    elif epi == EPI_ROPE:
+        M, N = y.shape[1:]
+        tok = torch.arange(M, device=y.device) % rope_n
+        yh = y.reshape(G, M, N // rope_d, rope_d)
+        y = (yh * cos[tok][:, None] + rotate_halves(yh) * sin[tok][:, None]).reshape(G, M, N)
+    return y.reshape(G, *lead, -1)
+
+
+def gemm_check(G: int, M: int, N: int, K: int, epi: int, rope_d: int = 0) -> None:
+    """The GEMM kernel's gate (a3r_gemm's checks): raises ValueError for a
+    shape or epilogue it does not take. Every product of the sites passes it
+    (C % 128 == 0, F % 128 == 0, D == 64)."""
+    if G < 1 or M < 1 or K < GEMM_BK or K % GEMM_BK or N < GEMM_BN or N % GEMM_BN:
+        raise ValueError(f"the GEMM needs K % {GEMM_BK} == 0, N % {GEMM_BN} == 0 and "
+                         f"G, M >= 1; got G={G} M={M} N={N} K={K}")
+    if epi not in (EPI_BIAS, EPI_ROPE, EPI_GELU, EPI_RESID):
+        raise ValueError(f"unknown GEMM epilogue {epi}")
+    if epi == EPI_ROPE and rope_d != GEMM_ROPE_D:
+        raise ValueError(f"the RoPE epilogue needs a head dim of {GEMM_ROPE_D}; got {rope_d}")
+
+
+def _gemm_cuda(a, w, bias, epi, resid=None, cos=None, sin=None, rope_d=0, rope_n=0):
+    """One launch of gemm.cuh's kernel on contiguous bf16 a (G, ..., K), w
+    (G, K, N); bias (G, N) of any float dtype."""
+    G, K = a.shape[0], a.shape[-1]
+    M = a.numel() // (G * K)
+    N = w.shape[-1]
+    gemm_check(G, M, N, K, epi, rope_d)
+    out = torch.empty((*a.shape[:-1], N), dtype=torch.bfloat16, device=a.device)
+    b = _lib.dense(bias.float())
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _lib.check(_lib.library().a3r_gemm(
+        a.data_ptr(), w.data_ptr(), b.data_ptr(), ptr(resid), out.data_ptr(), ptr(cos),
+        ptr(sin), G, M, N, K, epi, rope_d, rope_n, _lib.stream()), "GEMM")
+    gemm.launches += 1
+    return out
+
+
+def gemm(a, w, bias, epi, resid=None, cos=None, sin=None, rope_d=0, rope_n=0):
+    """One GEMM launch of K1 / K2 alone: C = epilogue(a @ w) (gemm_plain's
+    contract). bf16 CUDA tensors launch the kernel (gemm.launches counts every
+    launch of it, the sites' included); CPU tensors take gemm_plain."""
+    tensors = dict(a=a, w=w, bias=bias, resid=resid, cos=cos, sin=sin)
+    given = {k: t for k, t in tensors.items() if t is not None}
+    if not a.is_cuda:
+        if any(t.is_cuda for t in given.values()):
+            raise ValueError("gemm: a is on the CPU and another tensor on the card")
+        return gemm_plain(a, w, bias, epi, resid, cos, sin, rope_d, rope_n)
+    _check_cuda("GEMM", {k: t for k, t in given.items() if k != "bias"}, dict(bias=bias))
+    if w.dim() != 3 or w.shape[0] != a.shape[0] or w.shape[1] != a.shape[-1]:
+        raise ValueError(f"gemm needs a (G, ..., K) and w (G, K, N); got {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}")
+    if resid is not None and resid.shape != (*a.shape[:-1], w.shape[-1]):
+        raise ValueError(f"gemm: resid {tuple(resid.shape)} is not the output's shape")
+    if epi == EPI_RESID and resid is None:
+        raise ValueError("gemm: the residual epilogue needs resid")
+    if epi == EPI_ROPE and (cos is None or sin is None or cos.shape != (rope_n, rope_d)
+                            or sin.shape != cos.shape):
+        raise ValueError(f"gemm: RoPE needs cos and sin of shape (rope_n, rope_d) = "
+                         f"({rope_n}, {rope_d})")
+    return _gemm_cuda(_lib.dense(a), _lib.dense(w), bias, epi,
+                      *(None if t is None else _lib.dense(t) for t in (resid, cos, sin)),
+                      rope_d, rope_n)
+
+
+gemm.launches = 0
 
 
 # ------------------------------------------------------------------- K1
 
-def site_plain(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
-               num_heads: int, ln_q=None, ln_kv=None, residual: bool = False,
-               twin: bool = False):
-    """Plain PyTorch version of K1 (the semantics of the Pallas _kernel).
-    cos/sin: (N, D) tables in xq's dtype. twin=True gives the XLA twin
-    _site_xla (fused_site.py:427-473) instead, whose autograd is the
-    backward of attention_site_diff: it rounds p / s, not p, to v's dtype
-    before P V, and rounds the attention output before the projection."""
-    raw = xq
-    xq = _ln(raw, ln_q) if ln_q is not None else raw
-    if isinstance(ln_kv, str):
-        xkv = xq
-    elif ln_kv is not None:
-        xkv = _ln(xkv, ln_kv)
-    G, B, N, C = xq.shape
+def site_attention_step(q, k, v, num_heads: int, twin: bool = False):
+    """site_plain's attention on q, k, v (G, B, N, C), heads side by side:
+    the Pallas _kernel's (fused_site.py:139-153), P rounded to v's dtype and
+    P V times the reciprocal of the row sum of the unrounded p; K1's attention
+    launch, site_attention_plain and K6 divide by the sum instead, which can
+    differ in the last fp32 bit. twin=True: _site_xla's (p / s rounded before
+    P V, the output rounded)."""
+    G, B, N, C = q.shape
     H = num_heads
     D = C // H
 
     def heads(t):
         return t.reshape(G, B, N, H, D)
 
-    def rope(t):
-        return t * cos[:, None, :] + rotate_halves(t) * sin[:, None, :]
-
-    q = rope(heads(_proj(xq, wq, bq)))
-    k = rope(heads(_proj(xkv, wk, bk)))
-    v = heads(_proj(xkv, wv, bv))
-    logits = torch.einsum("gbqhd,gbkhd->gbhqk", q.float(), k.float()) * D ** -0.5
+    logits = torch.einsum("gbqhd,gbkhd->gbhqk", heads(q).float(), heads(k).float()) * D ** -0.5
     m = logits.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(logits - m)
     if twin:
         pn = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-        oh = torch.einsum("gbhqk,gbkhd->gbqhd", pn.float(), v.float())
-        o = oh.to(v.dtype).reshape(G, B, N, C)
-    else:
-        rs = 1.0 / p.sum(dim=-1)                                # (G,B,H,Nq)
-        oh = torch.einsum("gbhqk,gbkhd->gbqhd", p.to(v.dtype).float(), v.float())
-        o = (oh * rs.permute(0, 1, 3, 2)[..., None]).to(xq.dtype).reshape(G, B, N, C)
-    y = _proj(o, wo, bo)
-    return raw + y if residual else y
+        oh = torch.einsum("gbhqk,gbkhd->gbqhd", pn.float(), heads(v).float())
+        return oh.to(v.dtype).reshape(G, B, N, C)
+    rs = 1.0 / p.sum(dim=-1)                                # (G,B,H,Nq)
+    oh = torch.einsum("gbhqk,gbkhd->gbqhd", p.to(v.dtype).float(), heads(v).float())
+    return (oh * rs.permute(0, 1, 3, 2)[..., None]).to(q.dtype).reshape(G, B, N, C)
+
+
+def site_plain(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
+               num_heads: int, ln_q=None, ln_kv=None, residual: bool = False,
+               twin: bool = False):
+    """Plain PyTorch version of K1 (the semantics of the Pallas _kernel),
+    composed of its launches' plain versions: _ln, gemm_plain (q and k with
+    RoPE, v, the out-projection [+ residual]) and site_attention_step.
+    cos/sin: (N, D) tables in xq's dtype. twin=True gives the XLA twin
+    _site_xla (fused_site.py:427-473) instead, whose autograd is the backward
+    of attention_site_diff: it rounds p / s, not p, to v's dtype before P V,
+    and rounds the attention output before the projection."""
+    raw = xq
+    xq = _ln(raw, ln_q) if ln_q is not None else raw
+    if isinstance(ln_kv, str):
+        xkv = xq
+    elif ln_kv is not None:
+        xkv = _ln(xkv, ln_kv)
+    N, C = xq.shape[-2:]
+    D = C // num_heads
+    q = gemm_plain(xq, wq, bq, EPI_ROPE, cos=cos, sin=sin, rope_d=D, rope_n=N)
+    k = gemm_plain(xkv, wk, bk, EPI_ROPE, cos=cos, sin=sin, rope_d=D, rope_n=N)
+    v = gemm_plain(xkv, wv, bv, EPI_BIAS)
+    o = site_attention_step(q, k, v, num_heads, twin)
+    return gemm_plain(o, wo, bo, EPI_RESID if residual else EPI_BIAS, resid=raw)
 
 
 def _ln_cuda(lib, x, p, s):
@@ -176,22 +273,8 @@ def _site_cuda(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
                          f"{num_heads} heads, kv {tuple(xkv.shape)}")
     lib = _lib.library()
     s = _lib.stream()
-    rows = B * N
     xq = xq.contiguous()
     xkv = xkv.contiguous()
-
-    def gemm(x, w, b, epi, resid=None):
-        out = torch.empty((G, B, N, w.shape[-1]), dtype=torch.bfloat16,
-                          device=x.device)
-        w = w.contiguous()
-        b = b.float().contiguous()
-        _lib.check(lib.a3r_gemm(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            resid.data_ptr() if resid is not None else None, out.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), G, rows, w.shape[-1], C, epi, D, N,
-            s), "K1 gemm")
-        return out
-
     cos = cos.contiguous()
     sin = sin.contiguous()
     xn = _ln_cuda(lib, xq, ln_q, s) if ln_q is not None else xq
@@ -201,13 +284,15 @@ def _site_cuda(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
         kvn = _ln_cuda(lib, xkv, ln_kv, s)
     else:
         kvn = xkv
-    q = gemm(xn, wq, bq, _EPI_ROPE)
-    k = gemm(kvn, wk, bk, _EPI_ROPE)
-    v = gemm(kvn, wv, bv, _EPI_BIAS)
+    w = [t.contiguous() for t in (wq, wk, wv, wo)]
+    rope = dict(cos=cos, sin=sin, rope_d=D, rope_n=N)
+    q = _gemm_cuda(xn, w[0], bq, EPI_ROPE, **rope)
+    k = _gemm_cuda(kvn, w[1], bk, EPI_ROPE, **rope)
+    v = _gemm_cuda(kvn, w[2], bv, EPI_BIAS)
     o = _site_attention_cuda(q, k, v, num_heads)
     if residual:
-        return gemm(o, wo, bo, _EPI_RESID, resid=xq)
-    return gemm(o, wo, bo, _EPI_BIAS)
+        return _gemm_cuda(o, w[3], bo, EPI_RESID, resid=xq)
+    return _gemm_cuda(o, w[3], bo, EPI_BIAS)
 
 
 def site_tables(pos, D: int, rope_base, dtype):
@@ -251,14 +336,14 @@ attention_site.launches = 0
 # ------------------------------------------------------------------- K2
 
 def mlp_plain(x, w1, b1, w2, b2, ln=None, residual: bool = False):
-    """Plain PyTorch version of K2 (the semantics of the Pallas kernels)."""
+    """Plain PyTorch version of K2 (the semantics of the Pallas kernels),
+    composed of its launches' plain versions: _ln, gemm_plain with GELU,
+    gemm_plain [+ residual]."""
     raw = x
     if ln is not None:
         x = _ln(raw, ln)
-    h = torch.einsum("gbnc,gcf->gbnf", x.float(), w1.float()) + b1.float()[:, None, None]
-    h = torch.nn.functional.gelu(h, approximate="none").to(x.dtype)
-    y = _proj(h, w2, b2)
-    return raw + y if residual else y
+    h = gemm_plain(x, w1, b1, EPI_GELU)
+    return gemm_plain(h, w2, b2, EPI_RESID if residual else EPI_BIAS, resid=raw)
 
 
 def _mlp_cuda(x, w1, b1, w2, b2, ln, residual):
@@ -269,26 +354,12 @@ def _mlp_cuda(x, w1, b1, w2, b2, ln, residual):
     if C % 128 or F % 128 or C > 1024:
         raise ValueError(f"K2 needs C, F % 128 == 0 and C <= 1024; "
                          f"got C={C}, F={F}")
-    lib = _lib.library()
-    s = _lib.stream()
-    rows = B * N
     x = x.contiguous()
-    xn = _ln_cuda(lib, x, ln, s) if ln is not None else x
-    h = torch.empty((G, B, N, F), dtype=torch.bfloat16, device=x.device)
-    w1 = w1.contiguous()
-    w2 = w2.contiguous()
-    b1 = b1.float().contiguous()
-    b2 = b2.float().contiguous()
-    _lib.check(lib.a3r_gemm(xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), None,
-                            h.data_ptr(), None, None, G, rows, F, C, _EPI_GELU,
-                            0, N, s), "K2 fc1")
-    out = torch.empty_like(x)
-    _lib.check(lib.a3r_gemm(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                            x.data_ptr() if residual else None, out.data_ptr(),
-                            None, None, G, rows, C, F,
-                            _EPI_RESID if residual else _EPI_BIAS, 0, N, s),
-               "K2 fc2")
-    return out
+    xn = _ln_cuda(_lib.library(), x, ln, _lib.stream()) if ln is not None else x
+    h = _gemm_cuda(xn, w1.contiguous(), b1, EPI_GELU)
+    if residual:
+        return _gemm_cuda(h, w2.contiguous(), b2, EPI_RESID, resid=x)
+    return _gemm_cuda(h, w2.contiguous(), b2, EPI_BIAS)
 
 
 def mlp_site(x, w1, b1, w2, b2, ln=None, residual: bool = False):

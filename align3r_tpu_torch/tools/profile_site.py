@@ -1,4 +1,4 @@
-"""Profile K1's attention sites on one GPU, by launch, and the serving engine.
+"""Profile K1's and K2's sites on one GPU, by launch, and the serving engine.
 
     python -m align3r_tpu_torch.tools.profile_site [--out build/site_profile.json]
         [--engine]
@@ -8,12 +8,17 @@ shapes, from seeded random bf16 inputs and weights at 512x288 (576 tokens):
 the encoder's self site (1 stream x 16 images, C = 1024, 16 heads) and the
 decoder's self and cross sites (2 streams x 32 pairs, C = 768, 12 heads),
 each with LayerNorm and the residual, as ``chip_smoke.py``'s kernels phase
-does. Per site it reports:
+does; and K2 (``mlp_site``) at the encoder's (C = 1024, F = 4096) and the
+decoder's (2 streams, C = 768, F = 3072) shapes. Per site it reports:
 - the site's device time from a CUDA graph of 10 calls (CUDA events);
-- its split by launch from torch.profiler over 10 eager calls: LayerNorm,
-  the q/k GEMMs (bias + RoPE epilogue), the v GEMM (bias), attention, the
-  out-projection GEMM (bias + residual) and anything else (dtype
-  conversions of the biases), in device ms per site.
+- its split by launch from torch.profiler over 10 eager calls, in device ms
+  per site: for K1 LayerNorm, the q/k GEMMs (bias + RoPE epilogue), the v
+  GEMM (bias), attention, the out-projection GEMM (bias + residual); for K2
+  LayerNorm, fc1 (bias + GELU) and fc2 (bias + residual); and anything else
+  (dtype conversions of the biases). The GEMMs are told apart by their
+  epilogue in the kernel's name, in the WMMA core's (``gemm_kernel<EPI>``,
+  before the Hopper GEMM core) and the Hopper core's (``gemm_sm90<EPI>``)
+  naming, so a copy of this file profiles an older tree as well.
 With ``--engine`` it also builds VIT_L_512 from seeded weights and times the
 serving engine (``inference.engine.inference``) on ``chip_smoke.py``'s 24
 synthetic frames (190 pairs, batch 32): two warm runs, pairs/s of each.
@@ -25,26 +30,37 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 from collections import defaultdict
 
 import torch
 
-# (part, substrings of the kernel's name); first match wins
-PARTS = (("layernorm", ("layernorm",)),
-         ("q/k GEMMs (bias + RoPE)", ("gemm_kernel<1>",)),
-         ("v GEMM (bias)", ("gemm_kernel<0>",)),
-         ("out-projection GEMM (bias + residual)", ("gemm_kernel<3>",)),
-         ("attention", ("attention",)))
+
+def _gemm(epi: int) -> str:
+    """A GEMM launch with epilogue `epi`, by either core's kernel name."""
+    return rf"gemm_kernel<{epi}>|gemm_sm90<{epi}>"
+
+
+# (part, regular expression on the kernel's name); first match wins
+PARTS = (("layernorm", "layernorm"),
+         ("q/k GEMMs (bias + RoPE)", _gemm(1)),
+         ("v GEMM (bias)", _gemm(0)),
+         ("out-projection GEMM (bias + residual)", _gemm(3)),
+         ("attention", "attention"))
+MLP_PARTS = (("layernorm", "layernorm"),
+             ("fc1 GEMM (bias + GELU)", _gemm(2)),
+             ("fc2 GEMM (bias + residual)", _gemm(3)))
 SITES = (("encoder self", 1, 16, 1024, 16, False),
          ("decoder self", 2, 32, 768, 12, False),
          ("decoder cross", 2, 32, 768, 12, True))
+MLP_SITES = (("encoder mlp", 1, 16, 1024), ("decoder mlp", 2, 32, 768))
 
 
-def part(name: str) -> str:
-    for label, keys in PARTS:
-        if any(k in name for k in keys):
+def part(name: str, parts=PARTS) -> str:
+    for label, pattern in parts:
+        if re.search(pattern, name):
             return label
     return "other"
 
@@ -82,6 +98,25 @@ def profile_site(dev, gen, name, G, B, C, H, cross, reps: int = 10) -> dict:
     lnq, lnkv = ln(), (ln() if cross else "same")
     site = lambda: fs.attention_site(x, kv, *w, *b, pos, H, 100.0, ln_q=lnq, ln_kv=lnkv,
                                      residual=True)
+    return split_site(f"{name} G={G} B={B} N={N} C={C} H={H}", site, PARTS, reps)
+
+
+def profile_mlp(dev, gen, name, G, B, C, reps: int = 10) -> dict:
+    from align3r_tpu_torch.ops import fused_site as fs
+    bf = torch.bfloat16
+    rnd = lambda *s, sc=1.0, dt=bf: (torch.randn(*s, generator=gen, device=dev) * sc).to(dt)
+    N, F = (288 // 16) * (512 // 16), 4 * C
+    x = rnd(G, B, N, C)
+    w1, w2 = rnd(G, C, F, sc=C ** -0.5), rnd(G, F, C, sc=F ** -0.5)
+    b1, b2 = rnd(G, F, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32)
+    ln = (1 + rnd(G, C, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32))
+    site = lambda: fs.mlp_site(x, w1, b1, w2, b2, ln=ln, residual=True)
+    return split_site(f"{name} G={G} B={B} N={N} C={C} F={F}", site, MLP_PARTS, reps)
+
+
+def split_site(label, site, parts, reps) -> dict:
+    """The site's device time from a CUDA graph, and its kernels' device time
+    by part under torch.profiler."""
     for _ in range(3):
         site()
     torch.cuda.synchronize()
@@ -94,11 +129,10 @@ def profile_site(dev, gen, name, G, B, C, H, cross, reps: int = 10) -> dict:
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
                 e, "is_user_annotation", False):
-            split[part(e.name)] += e.device_time / 1e3 / reps
+            split[part(e.name, parts)] += e.device_time / 1e3 / reps
             names[e.name[:100]] += e.device_time / 1e3 / reps
     total = sum(split.values())
-    return {"site": f"{name} G={G} B={B} N={N} C={C} H={H}",
-            "graph_ms": graph_ms(site), "kernel_sum_ms": total,
+    return {"site": label, "graph_ms": graph_ms(site), "kernel_sum_ms": total,
             "split_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])),
             "split_share": {k: v / total for k, v in split.items()},
             "kernels_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
@@ -156,7 +190,8 @@ def main(argv=None) -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = {"card": card, "sites": [profile_site(dev, gen, *s) for s in SITES]}
+    res = {"card": card, "sites": [profile_site(dev, gen, *s) for s in SITES]
+           + [profile_mlp(dev, gen, *s) for s in MLP_SITES]}
     if args.engine:
         res["engine"] = engine_rates(dev)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

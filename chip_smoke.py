@@ -8,7 +8,9 @@ final result line:
   1. device   - requires CUDA; prints `nvidia-smi` name and power limit.
   2. build    - compiles the port's CUDA kernels (align3r_tpu_torch/csrc)
                 with nvcc into build/ and prints the seconds it took, and
-                each kernel's registers and spill bytes (ptxas -v).
+                each kernel's registers and spill bytes (ptxas -v). Every
+                instance of the GEMM core (gemm_sm90) must spill nothing and
+                its SASS (cuobjdump -sass) must hold HGMMA instructions.
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events; K1
@@ -18,7 +20,12 @@ final result line:
                 SDPA's as the sum of their kernels' device time under
                 torch.profiler). K1's attention launch alone is held to K6 bit
                 for bit on the same heads laid out per head, and timed beside
-                K6 and SDPA on that layout.
+                K6 and SDPA on that layout. Each GEMM launch of K1 and K2
+                alone (q/k with RoPE, v, out-projection with the residual,
+                fc1 with GELU, fc2 with the residual; encoder and decoder
+                shapes) against gemm_plain, timed from a CUDA graph beside
+                torch.addmm (torch.baddbmm for two streams) on the same bf16
+                product.
   4. parity   - a small model, a small solve and the flow term (gate off) run
                 on the card and on the CPU, from the same seeded weights and
                 inputs; they must agree.
@@ -28,7 +35,9 @@ final result line:
                 (190 pairs), batch 32, 300-iteration flow-variant solve. The
                 kernels' launch counters are zeroed right before the call and
                 every kernel must have launched; outputs must be finite and of
-                the expected shapes. A second, warm run gives pairs/s and it/s.
+                the expected shapes; the GEMM core must have launched 4
+                times per K1 site and twice per K2 site. A second, warm run
+                gives pairs/s and it/s.
   6. flow     - the same entry point on the demo's flow path: SEA-RAFT
                 spring-M at full width (seeded random weights) computes flows
                 in both directions of every edge, the self-supervised motion
@@ -132,6 +141,21 @@ def ptxas_usage(log: str) -> dict:
             out[name][1:] = map(int, re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name][0] = int(m.group(1))
+    return out
+
+
+def hgmma_counts(lib_path) -> dict:
+    """{GEMM kernel (mangled name): HGMMA instructions in its SASS}, from
+    cuobjdump -sass on the built library."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if "gemm" in name:
+            out[name] = fn.count("HGMMA")
     return out
 
 
@@ -316,6 +340,65 @@ def check_sites(dev, gen):
                          ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
                          bound_by=b_by))
         del x, w1, w2, out, ref
+    return rows
+
+
+def check_gemms(dev, gen):
+    """Each GEMM launch of K1 and K2 alone (csrc/gemm.cuh) at the main path's
+    shapes, 576 tokens a row: the encoder's (1 stream x 16 images, C = 1024,
+    F = 4096) and the decoder's (2 streams x 32 pairs, C = 768, F = 3072)
+    q/k (bias + RoPE), v (bias), out-projection (bias + residual), fc1 (bias +
+    GELU) and fc2 (bias + residual), against gemm_plain. Tolerance: 2 bf16
+    ulps of max|plain| (1.6e-2 x max): both round at the same points after
+    fp32 sums in another order. Timed from a CUDA graph, with its 128 x 128
+    tiles and their rounds of the card's SMs; beside it torch.addmm
+    (torch.baddbmm for 2 streams) of the same bf16 product plus a bf16 bias,
+    the library call the port never makes, timed the same way."""
+    import torch
+    from align3r_tpu_torch.ops import fused_site as fs
+    bf = torch.bfloat16
+    N_tok = (H // 16) * (W // 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ang = torch.randn(N_tok, 64, generator=gen, device=dev) * 3
+    cos, sin = torch.cos(ang).to(bf), torch.sin(ang).to(bf)
+    rows = []
+    for site, G, Bn, C in (("encoder", 1, 16, 1024), ("decoder", 2, 32, 768)):
+        M, F = Bn * N_tok, 4 * C
+        for kern_name, launch, N, K, epi in (
+                ("K1", "q/k (bias + RoPE)", C, C, fs.EPI_ROPE),
+                ("K1", "v (bias)", C, C, fs.EPI_BIAS),
+                ("K1", "out-projection (bias + residual)", C, C, fs.EPI_RESID),
+                ("K2", "fc1 (bias + GELU)", F, C, fs.EPI_GELU),
+                ("K2", "fc2 (bias + residual)", C, F, fs.EPI_RESID)):
+            a = torch.randn(G, M, K, generator=gen, device=dev).to(bf)
+            w = (torch.randn(G, K, N, generator=gen, device=dev) * K ** -0.5).to(bf)
+            b = torch.randn(G, N, generator=gen, device=dev) * 0.1
+            resid = torch.randn(G, M, N, generator=gen, device=dev).to(bf) \
+                if epi == fs.EPI_RESID else None
+            kw = dict(resid=resid, cos=cos if epi == fs.EPI_ROPE else None,
+                      sin=sin if epi == fs.EPI_ROPE else None, rope_d=64, rope_n=N_tok)
+            kern = lambda: fs.gemm(a, w, b, epi, **kw)
+            plain = lambda: fs.gemm_plain(a, w, b, epi, **kw)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, rel, scale = max_err(out, ref)
+            bb = b.to(bf)
+            lib = ((lambda: torch.addmm(bb[0], a[0], w[0])) if G == 1
+                   else (lambda: torch.baddbmm(bb[:, None], a, w)))
+            flop = 2 * G * M * N * K
+            nbytes = (G * (M * K + K * N + M * N) * 2 + G * N * 4
+                      + (G * M * N * 2 if resid is not None else 0))
+            b_ms, b_by = bound(nbytes, flop, PEAK_BF16)
+            ms = graph_time(kern, 20)
+            tiles = G * -(-M // fs.GEMM_BM) * (N // fs.GEMM_BN)
+            rows.append(ratios(dict(
+                kernel=kern_name, shape=f"GEMM {site} {launch} G={G} M={M} N={N} K={K}",
+                max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+                ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
+                tiles=tiles, rounds=tiles / sms, ms=ms,
+                tflops=flop / ms / 1e9, plain_ms=cuda_time(plain, 3),
+                library_ms=graph_time(lib, 20), bound_ms=b_ms, bound_by=b_by)))
+            del a, w, resid, out, ref
     return rows
 
 
@@ -770,7 +853,7 @@ def main_path(dev):
               variant="flow", niter=300, schedule="linear", lr=0.01,
               scene_kw=scene_kw)
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
-                el.permute_packed)
+                el.permute_packed, fs.gemm)
     for c in counters:
         c.launches = 0
     res = reconstruct_scene(imgs, priors, pm, **kw)
@@ -781,6 +864,9 @@ def main_path(dev):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if launches["gemm"] != 4 * launches["attention_site"] + 2 * launches["mlp_site"]:
+        raise AssertionError("the GEMM core did not run every projection of K1 and K2: "
+                             f"{launches}")
     n_pairs = res.cfg.n_edges
     checks = {
         "pairs": n_pairs == 190,
@@ -834,7 +920,7 @@ def flow_path(dev, pm, imgs, priors):
               raft_params=raft, use_self_mask=True, niter=300, schedule="linear",
               lr=0.01, scene_kw=scene_kw)
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
-                el.permute_packed)
+                el.permute_packed, fs.gemm)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -1291,10 +1377,20 @@ def main() -> int:
         print("build: ptxas registers and spill bytes " + json.dumps(usage), flush=True)
         print("build: kernels that spill " + json.dumps(
             [k for k, (_, st, ld) in usage.items() if st or ld]), flush=True)
+        gemm_sass = hgmma_counts(path)
+        print("build: HGMMA instructions per GEMM instance " + json.dumps(gemm_sass), flush=True)
+        gemms = {k: v for k, v in usage.items() if "gemm" in k}
+        bad = [k for k, (_, st, ld) in gemms.items() if st or ld or "gemm_sm90" not in k]
+        if len(gemms) != 4 or bad or sorted(gemm_sass) != sorted(gemms) or not all(
+                gemm_sass.values()):
+            return fail(phase, f"GEMM instances: {len(gemms)} (4 expected), spilling or "
+                               f"not the sm90 core: {bad}; without HGMMA: "
+                               f"{[k for k, n in gemm_sass.items() if not n]}")
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)
-        rows = (check_sites(dev, gen) + check_edge(dev, gen) + check_k5(dev, gen)
+        rows = (check_sites(dev, gen) + check_gemms(dev, gen) + check_edge(dev, gen)
+                + check_k5(dev, gen)
                 + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen))
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
@@ -1398,7 +1494,7 @@ def main() -> int:
                             "library_ms", "library_ms_eager", "ms_over_library", "k6_ms",
                             "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
                             "products_bound", "xla_chain_ms", "bound_ms", "bound_by",
-                            "max_abs_err")}
+                            "max_abs_err", "tiles", "rounds", "tflops")}
                                    for r in mine]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,

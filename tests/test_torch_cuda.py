@@ -18,8 +18,12 @@ takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards and
 K9's bf16 backward, two launches that give the same bits; for that backward
 (D = 64 and 128), a single live query row (dV = P^T dO shows P^T) and Q or
 K = 0 (uniform P: the transposed operands alone); for K1's attention
-launch, K6's bits on the same heads laid out per head; for K7 and
-K8, pixel counts that are not a multiple of the 128-pixel conv tile.
+launch, K6's bits on the same heads laid out per head; for K1/K2's GEMM
+launch (gemm.cuh), every epilogue at 135 rows over G = 2 and at the main
+path's shapes, K = 4096 (the ring wraps many times), N = 128 (one tile) and
+3072, grids of fewer tiles than SMs (a single row, K = 64), two launches
+that give the same bits, and the inputs it refuses; for K7 and K8, pixel counts that are not a multiple of
+the 128-pixel conv tile.
 Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
 K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
 same points after fp32 sums in another order), 1e-4 of the largest value
@@ -93,6 +97,95 @@ def test_mlp_site_kernel(dev):
         out = fs.mlp_site(x, w1, b1, w2, b2, ln=lnp, residual=res)
         assert fs.mlp_site.launches == before + 1
         _bf16_close(out, fs.mlp_plain(x, w1, b1, w2, b2, ln=lnp, residual=res))
+
+
+GEMM_SHAPES = [(2, 135, 128, 128),      # ragged rows, G = 2, one 128-column tile
+               (1, 9216, 1024, 1024),   # the encoder's projections
+               (2, 18432, 768, 768),    # the decoder's projections
+               (1, 9216, 1024, 4096),   # the encoder's fc2: K = 4096, the ring wraps 16 times
+               (2, 18432, 3072, 768)]   # the decoder's fc1: N = 3072
+
+
+def _gemm_inputs(dev, G, M, N, K, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s, sc=1.0: torch.randn(*s, generator=g, device=dev) * sc
+    a = rnd(G, M, K).to(torch.bfloat16)
+    w = rnd(G, K, N, sc=K ** -0.5).to(torch.bfloat16)
+    bias = rnd(G, N, sc=0.1)
+    resid = rnd(G, M, N).to(torch.bfloat16)
+    ang = rnd(576, 64, sc=3.0)
+    return a, w, bias, resid, torch.cos(ang).to(torch.bfloat16), torch.sin(ang).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("epi", ["bias", "rope", "gelu", "resid"])
+@pytest.mark.parametrize("shape", GEMM_SHAPES)
+def test_gemm_kernel(dev, shape, epi):
+    """One GEMM launch (gemm.cuh) against gemm_plain, every epilogue, at the
+    main path's shapes and a ragged one; RoPE with 576-token tables (rows
+    wrap every 576) at D = 64."""
+    G, M, N, K = shape
+    a, w, bias, resid, cos, sin = _gemm_inputs(dev, G, M, N, K, 20)
+    e = {"bias": fs.EPI_BIAS, "rope": fs.EPI_ROPE, "gelu": fs.EPI_GELU, "resid": fs.EPI_RESID}[epi]
+    kw = dict(resid=resid if epi == "resid" else None, cos=cos if epi == "rope" else None,
+              sin=sin if epi == "rope" else None, rope_d=64, rope_n=576)
+    before = fs.gemm.launches
+    out = fs.gemm(a, w, bias, e, **kw)
+    assert fs.gemm.launches == before + 1 and out.shape == (G, M, N)
+    ref = fs.gemm_plain(a, w, bias, e, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("epi", ["bias", "rope", "gelu", "resid"])
+@pytest.mark.parametrize("shape", [(1, 1, 128, 64), (2, 64, 256, 192), (3, 129, 384, 128),
+                                   (1, 600, 640, 512)])
+def test_gemm_kernel_small_grids(dev, shape, epi):
+    """Grids of fewer tiles than SMs: one tile (the second consumer idle), a
+    single row, 64 rows (the second 64-row half of the tile all past M), 129
+    rows over three streams (a tile of one row), K = 64 (one k-tile, the ring
+    never full); each epilogue against gemm_plain."""
+    G, M, N, K = shape
+    a, w, bias, resid, cos, sin = _gemm_inputs(dev, G, M, N, K, 21)
+    e = {"bias": fs.EPI_BIAS, "rope": fs.EPI_ROPE, "gelu": fs.EPI_GELU, "resid": fs.EPI_RESID}[epi]
+    kw = dict(resid=resid if epi == "resid" else None, cos=cos if epi == "rope" else None,
+              sin=sin if epi == "rope" else None, rope_d=64, rope_n=576)
+    out = fs.gemm(a, w, bias, e, **kw)
+    ref = fs.gemm_plain(a, w, bias, e, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+
+
+def test_gemm_kernel_is_deterministic(dev):
+    """Two launches give the same bits (no atomics; each tile's sums in one
+    order)."""
+    a, w, bias, resid, _, _ = _gemm_inputs(dev, 2, 1000, 1024, 3072, 22)
+    x = fs.gemm(a, w, bias, fs.EPI_RESID, resid=resid)
+    y = fs.gemm(a, w, bias, fs.EPI_RESID, resid=resid)
+    torch.cuda.synchronize()
+    assert torch.equal(x, y)
+
+
+def test_gemm_refuses_unsupported(dev):
+    """N or K off the tiles, a RoPE head dim other than 64, a CPU tensor among
+    CUDA ones (either way round) and an fp32 operand are refused before any
+    launch."""
+    a, w, bias, resid, cos, sin = _gemm_inputs(dev, 1, 64, 256, 128, 23)
+    before = fs.gemm.launches
+    with pytest.raises(ValueError):
+        fs.gemm(a, w[..., :96], bias[:, :96], fs.EPI_BIAS)
+    with pytest.raises(ValueError):
+        fs.gemm(a[..., :96], w[:, :96], bias, fs.EPI_BIAS)
+    with pytest.raises(ValueError):
+        fs.gemm(a, w, bias, fs.EPI_ROPE, cos=cos[:, :32], sin=sin[:, :32], rope_d=32, rope_n=576)
+    with pytest.raises(ValueError):
+        fs.gemm(a, w.cpu(), bias, fs.EPI_BIAS)
+    with pytest.raises(ValueError):
+        fs.gemm(a.cpu(), w, bias, fs.EPI_BIAS)
+    with pytest.raises(ValueError):
+        fs.gemm(a.float(), w, bias, fs.EPI_BIAS)
+    with pytest.raises(ValueError):
+        fs.gemm(a, w, bias, fs.EPI_RESID)
+    assert fs.gemm.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
