@@ -1,10 +1,17 @@
-// The Hopper GEMM core of K1's projections and K2 (fused_site.cu), with its
-// epilogues fused:
+// The Hopper GEMM core of K1's projections and K2 (fused_site.cu) and of
+// K7/K8's bf16 3x3 convolutions (dpt_pipeline.cu), with its epilogues fused:
 //
 //   C[g] = epilogue(A[g] @ W[g])     A (G, M, K) bf16 row-major,
 //                                    W (G, K, N) bf16 row-major ((in, out)
 //                                    as the JAX package stores kernels),
 //                                    C (G, M, N) bf16, fp32 accumulation.
+//
+// The core (gemm_core) is one kernel body for a policy that says where a
+// tile's A k-tiles come from, in which order the tiles are walked and what
+// the epilogue does; the ring, the products and the hand-offs are the core's.
+// The GEMM's policy (GemmPolicy, below) reads A through a 3-D map; the conv's
+// (ConvPolicy, dpt_pipeline.cu) reads each k-tile as a tap-shifted box of an
+// NHWC image, an implicit GEMM.
 //
 // Persistent, ping-pong: one block per SM walks over the 128 x 128 tiles of
 // C in order, N fastest. A block is one producer warpgroup and two consumer
@@ -35,6 +42,10 @@
 //     stmatrix into the consumer's C buffer, as 64 x 64 boxes with the
 //     128-byte swizzle, and from there by TMA stores, which clip the rows
 //     past M and are waited for only before the buffer is written again.
+//   - A policy may ask for the ReLU of A (RELU_A): then the producer
+//     warpgroup's other three warps rewrite each landed A stage in shared
+//     memory and hand it to the consumers on a third barrier (ready), ahead
+//     of the products, so the consumers' loop stays as it is.
 //   - A map that fails to encode or a refused launch is an error code; a copy
 //     that never lands traps after 4 s (mbar_wait).
 //
@@ -83,11 +94,15 @@ struct GemmSmem {
   static constexpr int CB = GBM * GBN * 2;     // a consumer's C tile: four boxes of 64 x 64
   static constexpr int C0 = GSTAGES * STAGE;   // consumer w's at C0 + w CB
   static constexpr int BIAS = C0 + 2 * CB;     // consumer w's fp32 bias slice at BIAS + w 512
-  // full, empty [GSTAGES]; bias full, empty [2]; products done [2]
+  // full, empty, ready [GSTAGES]; bias full, empty [2]; products done [2]
   static constexpr int BAR = BIAS + 2 * GBN * 4;
-  static constexpr int BYTES = BAR + (2 * GSTAGES + 6) * 8 + 1024;   // + the base's alignment
+  static constexpr int BYTES = BAR + (3 * GSTAGES + 6) * 8 + 1024;   // + the base's alignment
   static_assert(STAGE % 1024 == 0 && CB % 1024 == 0, "tiles must keep 1024-byte alignment");
 };
+
+// The producer warpgroup's warps 1..3, which apply an operand ReLU to each
+// landed A stage where a policy asks for one (RELU_A).
+constexpr int GEMM_RELU_WARPS = 3;
 
 struct GemmArgs {
   const float* bias;   // (G, N) fp32
@@ -98,40 +113,40 @@ struct GemmArgs {
   int rope_n;          // tokens per sequence: row m is token m % rope_n
 };
 
-// The block's grid of tiles: (G, M / GBM, N / GBN), N fastest.
-struct GemmTiles {
-  int nn, nm, tiles, nk;
-  __device__ __forceinline__ GemmTiles(int G, int M, int N, int K)
-      : nn(N / GBN), nm((M + GBM - 1) / GBM), tiles(G * nm * nn), nk(K / GBK) {}
-  __device__ __forceinline__ void at(int t, int& g, int& m0, int& n0) const {
-    n0 = (t % nn) * GBN;
-    t /= nn;
-    m0 = (t % nm) * GBM;
-    g = t / nm;
-  }
-};
-
-// the 1024-byte aligned base of the dynamic shared memory
+// The 1024-byte aligned base of the dynamic shared memory.
 __device__ __forceinline__ uint32_t gemm_smem_base(const void* smem_raw) {
   return (sm90::smem_addr(smem_raw) + 1023u) & ~1023u;
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS, 1)
-gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
-          const __grid_constant__ CUtensorMap tc, const GemmArgs p) {
+// The core, for a policy P that says where a tile's A and W k-tiles come
+// from and what its epilogue does:
+//   P::RELU_A, P::TMA_STORE, P::C_PASS operand ReLU of A; C by TMA stores;
+//                                      p.pass(cbuf, tile, thread) on the bf16
+//                                      tile in the C buffer before its stores
+//   p.walk()                           .tiles, .nk, .at(t) -> P::Tile
+//   p.prologue(smem)                   by every thread, before the roles split
+//   p.load(sa, ta, tw, bar, tile, kt)  the producer's TMA loads of one stage
+//   p.bias(tile)                       the tile's fp32 bias slice (128 floats)
+//   p.rows(tile, wl, lane)             the epilogue's per-tile state
+//   p.chunk(a, hm, h, st, bias, smem, wl, lane)   one (half, row half) chunk
+//   p.store(tc, cbase, tile)           the issuer's TMA stores of the C tile
+template <class P>
+__device__ __forceinline__ void gemm_core(const CUtensorMap* ta, const CUtensorMap* tw,
+                                          const CUtensorMap* tc, const P& p) {
   using namespace sm90;
   using L = GemmSmem;
   constexpr int S = GSTAGES;
-  // barriers: full, empty [S]; bias full, empty [2]; products done [2]
-  constexpr int EMPTY = L::BAR + 8 * S, BFULL = EMPTY + 8 * S, BEMPTY = BFULL + 16,
-                DONE = BEMPTY + 16;
+  // barriers: full, empty, ready [S]; bias full, empty [2]; products done [2]
+  constexpr int EMPTY = L::BAR + 8 * S, READY = EMPTY + 8 * S, BFULL = READY + 8 * S,
+                BEMPTY = BFULL + 16, DONE = BEMPTY + 16;
   extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = gemm_smem_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
   if (threadIdx.x == 0) {
-    const uint32_t base = gemm_smem_base(smem_raw);
     for (int s = 0; s < S; ++s) {
       mbar_init(base + L::BAR + 8 * s, 1);
       mbar_init(base + EMPTY + 8 * s, 4);   // the consuming warpgroup's four warps
+      mbar_init(base + READY + 8 * s, GEMM_RELU_WARPS);
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(base + BFULL + 8 * b, 1);
@@ -140,52 +155,70 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  p.prologue(smem);
   __syncthreads();
 
   if (threadIdx.x >= 256) {   // the producer warpgroup: one thread issues every copy
     setmaxnreg_dec<GEMM_PRODUCER_REGS>();
     if (threadIdx.x == 256) {
-      const uint32_t base = gemm_smem_base(smem_raw), full = base + L::BAR;
+      const uint32_t full = base + L::BAR;
       const uint32_t empty = base + EMPTY, bfull = base + BFULL, bempty = base + BEMPTY;
-      const int N = p.N;
-      const GemmTiles tl(p.G, p.M, N, p.K);
+      const auto tl = p.walk();
       int it = 0;   // k-tiles issued, over all of this block's tiles
       for (int t = blockIdx.x, i = 0; t < tl.tiles; t += gridDim.x, ++i) {
-        int g, m0, n0;
-        tl.at(t, g, m0, n0);
+        const auto tile = tl.at(t);
         const int b = i & 1;   // tile i's consumer
         if (i >= 2) mbar_wait(bempty + 8 * b, ((i >> 1) - 1) & 1);
         mbar_expect_tx(bfull + 8 * b, GBN * 4);
-        bulk_load(base + L::BIAS + b * GBN * 4, p.bias + (size_t)g * N + n0, GBN * 4,
-                  bfull + 8 * b);
+        bulk_load(base + L::BIAS + b * GBN * 4, p.bias(tile), GBN * 4, bfull + 8 * b);
         for (int kt = 0; kt < tl.nk; ++kt, ++it) {
           const int s = it % S;
           if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
-          const uint32_t sa = base + s * L::STAGE, bar = full + 8 * s;
+          const uint32_t bar = full + 8 * s;
           mbar_expect_tx(bar, L::STAGE);
-          tma_load(sa, &ta, bar, kt * GBK, m0, g);
-          tma_load(sa + L::AB, &tw, bar, n0, kt * GBK, g);
-          tma_load(sa + L::AB + GBK * 128, &tw, bar, n0 + 64, kt * GBK, g);
+          p.load(base + s * L::STAGE, ta, tw, bar, tile, kt);
+        }
+      }
+    } else if constexpr (P::RELU_A) {
+      if (threadIdx.x >= 256 + 32) {   // warps 1..3: relu each landed A stage in place
+        // (the swizzle moves 16-byte chunks only), then hand it to the consumers
+        const uint32_t full = base + L::BAR, ready = base + READY;
+        const auto tl = p.walk();
+        const int mine = (tl.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+        const int rt = threadIdx.x - 256 - 32;
+        for (int it = 0; it < mine * tl.nk; ++it) {
+          const int s = it % S;
+          mbar_wait(full + 8 * s, (it / S) & 1);
+          uint4* a = reinterpret_cast<uint4*>(smem + s * L::STAGE);
+#pragma unroll 4
+          for (int e = rt; e < L::AB / 16; e += 32 * GEMM_RELU_WARPS) {
+            uint4 v = a[e];   // bf16 pairs: a negative bf16 is a negative int16
+            v.x = __vmaxs2(v.x, 0u);
+            v.y = __vmaxs2(v.y, 0u);
+            v.z = __vmaxs2(v.z, 0u);
+            v.w = __vmaxs2(v.w, 0u);
+            a[e] = v;
+          }
+          fence_proxy_async();   // visible to the consumers' wgmma (the async proxy)
+          __syncwarp();
+          if ((threadIdx.x & 31) == 0) mbar_arrive(ready + 8 * s);
         }
       }
     }
   } else {   // consumer wg: the block's tiles wg, wg + 2, ...
     setmaxnreg_inc<GEMM_CONSUMER_REGS>();
     const uint32_t tid = threadIdx.x;
-    const uint32_t base = gemm_smem_base(smem_raw), full = base + L::BAR;
+    // a stage is the consumers' once it landed, or once the ReLU warps are done with it
+    const uint32_t full = base + (P::RELU_A ? READY : L::BAR);
     const uint32_t empty = base + EMPTY, bfull = base + BFULL, bempty = base + BEMPTY;
     const uint32_t done = base + DONE;
-    const int M = p.M, N = p.N;
-    const GemmTiles tl(p.G, M, N, p.K);
+    const auto tl = p.walk();
     const int nk = tl.nk, warp = tid >> 5, lane = tid & 31;
     const int wg = warp >> 2, wl = warp & 3, c = 2 * (lane & 3);
     const uint32_t cbase = base + L::C0 + wg * L::CB;
-    const float* bias = reinterpret_cast<const float*>(
-                            smem_raw + (base - smem_addr(smem_raw)) + L::BIAS) + wg * GBN + c;
+    const float* bias = reinterpret_cast<const float*>(smem + L::BIAS) + wg * GBN + c;
     const bool issuer = wl == 0 && lane == 0;   // this consumer's TMA stores
     for (int t = blockIdx.x + wg * gridDim.x, i = wg; t < tl.tiles; t += 2 * gridDim.x, i += 2) {
-      int g, m0, n0;
-      tl.at(t, g, m0, n0);
       float acc[2][GBN / 2];   // the two 64-row halves
 #pragma unroll
       for (int e = 0; e < GBN / 2; ++e) acc[0][e] = acc[1][e] = 0.f;
@@ -218,109 +251,182 @@ gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
       // loads, bias and math after a pin of the half's accumulators (whose
       // memory clobber keeps the next chunk's loads behind it): the registers
       // beside the 128 accumulators stay few. acc[hm][4 j + 2 h + e] is row
-      // m0 + 64 hm + 16 wl + lane / 4 + 8 h, column n0 + 8 j + c + e. The bf16
-      // tile goes into this consumer's C buffer once the stores of its last
-      // tile have read it: box (hm, w) (rows 64 hm.., columns 64 w..) at
-      // cbase + (2 hm + w) 8 KB, row-major with the 128-byte swizzle. One
-      // stmatrix.x4 takes column groups j, j + 1 of both row halves h; lane l
-      // addresses row l % 8 of matrix l / 8 = (h, j + jj).
-      const int tok0 = EPI == EPI_BIAS_ROPE ? (m0 + 16 * wl + (lane >> 2)) % p.rope_n : 0;
+      // 64 hm + 16 wl + lane / 4 + 8 h of the tile, column n0 + 8 j + c + e.
+      // With TMA stores the bf16 tile goes into this consumer's C buffer once
+      // the stores of its last tile have read it: box (hm, w) (rows 64 hm..,
+      // columns 64 w..) at cbase + (2 hm + w) 8 KB, row-major with the
+      // 128-byte swizzle. One stmatrix.x4 takes column groups j, j + 1 of
+      // both row halves h; lane l addresses row l % 8 of matrix l / 8 =
+      // (h, j + jj).
+      const auto tile = tl.at(t);   // decoded here: only t is live over the products
+      const auto st = p.rows(tile, wl, lane);
       mbar_wait(bfull + 8 * wg, (i >> 1) & 1);
-      if (issuer) tma_store_wait_read();
-      named_sync(1 + wg, 128);
+      if constexpr (P::TMA_STORE) {
+        if (issuer) tma_store_wait_read();
+        named_sync(1 + wg, 128);
+      }
       const int mi = lane >> 3, ri = lane & 7;
       const uint32_t row_off = (wl * 16 + (mi & 1) * 8 + ri) * 128;
 #pragma unroll
       for (int hm = 0; hm < 2; ++hm) {
-        float* a = acc[hm];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           pin(acc[hm]);
-          const int row = m0 + 64 * hm + 16 * wl + (lane >> 2) + 8 * h;
-          // side[j]: the bf16 pair of the row at columns n0 + 8 j + c (resid),
-          // or of its token at head columns 8 j + c of cos (j < 8), sin (j >= 8)
-          uint32_t side[16];
-          if constexpr (EPI == EPI_BIAS_RESID) {
-            const bf16* R = p.resid + ((size_t)g * M + min(row, M - 1)) * N + n0 + c;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) side[j] = *reinterpret_cast<const uint32_t*>(R + 8 * j);
-          } else if constexpr (EPI == EPI_BIAS_ROPE) {
-            int tk = tok0 + 64 * hm + 8 * h;   // (row % rope_n), without a division per chunk
-            while (tk >= p.rope_n) tk -= p.rope_n;
-            const size_t tok = (size_t)tk * GEMM_ROPE_D + c;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              side[j] = *reinterpret_cast<const uint32_t*>(p.cos + tok + 8 * j);
-              side[8 + j] = *reinterpret_cast<const uint32_t*>(p.sin + tok + 8 * j);
-            }
-          }
-          const auto pair = [&](int j) {
-            return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&side[j]));
-          };
-#pragma unroll
-          for (int j = 0; j < GBN / 8; ++j) {
-            const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j);
-            a[4 * j + 2 * h] += bj.x;
-            a[4 * j + 2 * h + 1] += bj.y;
-          }
-          if constexpr (EPI == EPI_BIAS_GELU) {
-#pragma unroll
-            for (int j = 0; j < GBN / 8; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float v = a[4 * j + 2 * h + e];
-                a[4 * j + 2 * h + e] = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-              }
-          } else if constexpr (EPI == EPI_BIAS_RESID) {
-#pragma unroll
-            for (int j = 0; j < GBN / 8; ++j) {
-              const float2 r = pair(j);
-              a[4 * j + 2 * h] = r.x + bf16r(a[4 * j + 2 * h]);
-              a[4 * j + 2 * h + 1] = r.y + bf16r(a[4 * j + 2 * h + 1]);
-            }
-          } else if constexpr (EPI == EPI_BIAS_ROPE) {
-            // in a 64-column head, column groups j % 8 = 0, 1 and 4, 5 are the
-            // first quarters of its halves, rotated against groups j + 2
-#pragma unroll
-            for (int jb = 0; jb < GBN / 8; jb += 8)
-#pragma unroll
-              for (int jq = 0; jq < 6; ++jq) {
-                if (jq == 2 || jq == 3) continue;
-                const int i1 = 4 * (jb + jq) + 2 * h, i2 = i1 + 8;   // i2: the partner, 16 columns on
-                const float2 c1 = pair(jq), s1 = pair(8 + jq), c2 = pair(jq + 2), s2 = pair(10 + jq);
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                  const float t1 = bf16r(a[i1 + e]), t2 = bf16r(a[i2 + e]);
-                  a[i1 + e] = bf16r(t1 * (e ? c1.y : c1.x)) + bf16r(-t2 * (e ? s1.y : s1.x));
-                  a[i2 + e] = bf16r(t2 * (e ? c2.y : c2.x)) + bf16r(t1 * (e ? s2.y : s2.x));
-                }
-              }
-          }
+          p.chunk(acc[hm], hm, h, st, bias, smem, wl, lane);
         }
+        if constexpr (P::TMA_STORE) {
+          const float* a = acc[hm];
 #pragma unroll
-        for (int j = 0; j < GBN / 8; j += 2) {
-          const int jj = j + (mi >> 1);
-          stmatrix_x4(cbase + (2 * hm + (jj >> 3)) * (64 * 128) + row_off + (((jj & 7) ^ ri) << 4),
-                      pack_bf16(a[4 * j], a[4 * j + 1]), pack_bf16(a[4 * j + 2], a[4 * j + 3]),
-                      pack_bf16(a[4 * j + 4], a[4 * j + 5]), pack_bf16(a[4 * j + 6], a[4 * j + 7]));
+          for (int j = 0; j < GBN / 8; j += 2) {
+            const int jj = j + (mi >> 1);
+            stmatrix_x4(cbase + (2 * hm + (jj >> 3)) * (64 * 128) + row_off + (((jj & 7) ^ ri) << 4),
+                        pack_bf16(a[4 * j], a[4 * j + 1]), pack_bf16(a[4 * j + 2], a[4 * j + 3]),
+                        pack_bf16(a[4 * j + 4], a[4 * j + 5]), pack_bf16(a[4 * j + 6], a[4 * j + 7]));
+          }
         }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(bempty + 8 * wg);   // the bias slice is read
-      fence_proxy_async();
-      named_sync(1 + wg, 128);
-      if (issuer) {
-#pragma unroll
-        for (int hm = 0; hm < 2; ++hm)
-          if (m0 + 64 * hm < M) {
-            tma_store(&tc, cbase + 2 * hm * (64 * 128), n0, m0 + 64 * hm, g);
-            tma_store(&tc, cbase + (2 * hm + 1) * (64 * 128), n0 + 64, m0 + 64 * hm, g);
-          }
-        tma_store_commit();
+      if constexpr (P::TMA_STORE) {
+        if constexpr (P::C_PASS) {   // a pass over the whole bf16 tile in the C buffer
+          named_sync(1 + wg, 128);
+          p.pass(smem + L::C0 + wg * L::CB, tile, tid & 127);
+        }
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+        if (issuer) {
+          p.store(tc, cbase, tile);
+          tma_store_commit();
+        }
       }
     }
-    if (issuer) tma_store_wait_all();
+    if (P::TMA_STORE && issuer) tma_store_wait_all();
   }
+}
+
+// ------------------------------------------------------------ the GEMM
+
+// The GEMM's policy: A (G, M, K) and W (G, K, N) by 3-D maps, tiles
+// (G, M / GBM, N / GBN) with N fastest, C (G, M, N) bf16 by TMA stores.
+template <int EPI>
+struct GemmPolicy {
+  static constexpr bool RELU_A = false, TMA_STORE = true, C_PASS = false;
+  struct Tile { int g, m0, n0; };
+  struct Walk {
+    int nn, nm, tiles, nk;
+    __device__ __forceinline__ Tile at(int t) const {
+      Tile r;
+      r.n0 = (t % nn) * GBN;
+      t /= nn;
+      r.m0 = (t % nm) * GBM;
+      r.g = t / nm;
+      return r;
+    }
+  };
+  struct Rows { int g, m0, n0, tok0; };
+  GemmArgs p;
+
+  __device__ __forceinline__ Walk walk() const {
+    const int nn = p.N / GBN, nm = (p.M + GBM - 1) / GBM;
+    return Walk{nn, nm, p.G * nm * nn, p.K / GBK};
+  }
+  __device__ __forceinline__ void prologue(unsigned char*) const {}
+  __device__ __forceinline__ void load(uint32_t sa, const CUtensorMap* ta, const CUtensorMap* tw,
+                                       uint32_t bar, const Tile& t, int kt) const {
+    sm90::tma_load(sa, ta, bar, kt * GBK, t.m0, t.g);
+    sm90::tma_load(sa + GemmSmem::AB, tw, bar, t.n0, kt * GBK, t.g);
+    sm90::tma_load(sa + GemmSmem::AB + GBK * 128, tw, bar, t.n0 + 64, kt * GBK, t.g);
+  }
+  __device__ __forceinline__ const float* bias(const Tile& t) const {
+    return p.bias + (size_t)t.g * p.N + t.n0;
+  }
+  __device__ __forceinline__ Rows rows(const Tile& t, int wl, int lane) const {
+    return Rows{t.g, t.m0, t.n0,
+                EPI == EPI_BIAS_ROPE ? (t.m0 + 16 * wl + (lane >> 2)) % p.rope_n : 0};
+  }
+  // the epilogue math of chunk (hm, h) on a = acc[hm]; the bf16 rounding of
+  // the result is the stmatrix pack
+  __device__ __forceinline__ void chunk(float (&a)[GBN / 2], int hm, int h, const Rows& st,
+                                        const float* bias, const unsigned char*, int wl,
+                                        int lane) const {
+    const int M = p.M, N = p.N, c = 2 * (lane & 3);
+    const int row = st.m0 + 64 * hm + 16 * wl + (lane >> 2) + 8 * h;
+    // side[j]: the bf16 pair of the row at columns n0 + 8 j + c (resid),
+    // or of its token at head columns 8 j + c of cos (j < 8), sin (j >= 8)
+    uint32_t side[16];
+    if constexpr (EPI == EPI_BIAS_RESID) {
+      const bf16* R = p.resid + ((size_t)st.g * M + min(row, M - 1)) * N + st.n0 + c;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) side[j] = *reinterpret_cast<const uint32_t*>(R + 8 * j);
+    } else if constexpr (EPI == EPI_BIAS_ROPE) {
+      int tk = st.tok0 + 64 * hm + 8 * h;   // (row % rope_n), without a division per chunk
+      while (tk >= p.rope_n) tk -= p.rope_n;
+      const size_t tok = (size_t)tk * GEMM_ROPE_D + c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        side[j] = *reinterpret_cast<const uint32_t*>(p.cos + tok + 8 * j);
+        side[8 + j] = *reinterpret_cast<const uint32_t*>(p.sin + tok + 8 * j);
+      }
+    }
+    const auto pair = [&](int j) {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&side[j]));
+    };
+#pragma unroll
+    for (int j = 0; j < GBN / 8; ++j) {
+      const float2 bj = *reinterpret_cast<const float2*>(bias + 8 * j);
+      a[4 * j + 2 * h] += bj.x;
+      a[4 * j + 2 * h + 1] += bj.y;
+    }
+    if constexpr (EPI == EPI_BIAS_GELU) {
+#pragma unroll
+      for (int j = 0; j < GBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v = a[4 * j + 2 * h + e];
+          a[4 * j + 2 * h + e] = 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
+        }
+    } else if constexpr (EPI == EPI_BIAS_RESID) {
+#pragma unroll
+      for (int j = 0; j < GBN / 8; ++j) {
+        const float2 r = pair(j);
+        a[4 * j + 2 * h] = r.x + bf16r(a[4 * j + 2 * h]);
+        a[4 * j + 2 * h + 1] = r.y + bf16r(a[4 * j + 2 * h + 1]);
+      }
+    } else if constexpr (EPI == EPI_BIAS_ROPE) {
+      // in a 64-column head, column groups j % 8 = 0, 1 and 4, 5 are the
+      // first quarters of its halves, rotated against groups j + 2
+#pragma unroll
+      for (int jb = 0; jb < GBN / 8; jb += 8)
+#pragma unroll
+        for (int jq = 0; jq < 6; ++jq) {
+          if (jq == 2 || jq == 3) continue;
+          const int i1 = 4 * (jb + jq) + 2 * h, i2 = i1 + 8;   // i2: the partner, 16 columns on
+          const float2 c1 = pair(jq), s1 = pair(8 + jq), c2 = pair(jq + 2), s2 = pair(10 + jq);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float t1 = bf16r(a[i1 + e]), t2 = bf16r(a[i2 + e]);
+            a[i1 + e] = bf16r(t1 * (e ? c1.y : c1.x)) + bf16r(-t2 * (e ? s1.y : s1.x));
+            a[i2 + e] = bf16r(t2 * (e ? c2.y : c2.x)) + bf16r(t1 * (e ? s2.y : s2.x));
+          }
+        }
+    }
+  }
+  __device__ __forceinline__ void store(const CUtensorMap* tc, uint32_t cbase,
+                                        const Tile& t) const {
+#pragma unroll
+    for (int hm = 0; hm < 2; ++hm)
+      if (t.m0 + 64 * hm < p.M) {
+        sm90::tma_store(tc, cbase + 2 * hm * (64 * 128), t.n0, t.m0 + 64 * hm, t.g);
+        sm90::tma_store(tc, cbase + (2 * hm + 1) * (64 * 128), t.n0 + 64, t.m0 + 64 * hm, t.g);
+      }
+  }
+};
+
+template <int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+          const __grid_constant__ CUtensorMap tc, const GemmArgs p) {
+  gemm_core(&ta, &tw, &tc, GemmPolicy<EPI>{p});
 }
 
 // ------------------------------------------------------------ host side

@@ -1,6 +1,7 @@
 // The PTX layer of the port's Hopper cores: the attention core
 // (sm90_attention.cuh: K6, K9, K1's attention launch) and the GEMM core
-// (gemm.cuh: K1's projections, K2). mbarriers, TMA loads and stores, bulk
+// (gemm.cuh: K1's projections, K2, K7/K8's bf16 3x3 convolutions).
+// mbarriers, TMA loads and stores (3-D and 4-D), bulk
 // copies, wgmma with its fence / commit / wait, shared-memory matrix
 // descriptors, stmatrix, and on the host the tensor-map encoder (through
 // cudaGetDriverEntryPoint, so the library needs no -lcuda) and the
@@ -62,6 +63,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3) of the 4-D `map` into shared memory at dst
+// (coordinates may be negative or past the end: those elements are zero-filled)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -252,6 +264,17 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3) of the 4-D `map` from shared memory at src; the
+// elements past the end of a dimension are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -22,9 +22,12 @@ bias (nn.conv2d) and resizes rows first without the intermediate rounding, so
 the pipeline and XLA heads differ by one bf16 rounding per stage, in both
 packages.
 
-The CUDA implementation is csrc/dpt_pipeline.cu (one implicit-GEMM 3x3 conv
-kernel with three epilogues, and a two-tap upsample kernel); what bounds them
-and what the design does about it is written at the top of that file.
+The CUDA implementation is csrc/dpt_pipeline.cu: each 3x3 conv is one launch
+of an implicit GEMM with an epilogue (``conv3x3_plain`` is one launch's plain
+version), in bf16 on the Hopper GEMM core of csrc/gemm.cuh (each k-tile a
+tap-shifted, zero-filled box of BW x BH pixels, ``conv_tiles_plain``), in fp32
+on an FMA kernel; the upsample is a two-tap kernel. What bounds them and what
+the design does about it is written at the top of that file.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernels (counted on ``fused_res_unit.launches`` and
@@ -43,7 +46,12 @@ from align3r_tpu_torch.models.nn import _interp_matrix
 from align3r_tpu_torch.ops import _lib
 from align3r_tpu_torch.ops.autograd import KernelWithTwin
 
-EPI_ROUND, EPI_RESID, EPI_HEAD = 0, 1, 2
+# the epilogues (csrc/dpt_pipeline.cu enum Epi) and the kernels' tiles:
+# CONV_BM pixels x CONV_BN output channels (gemm.cuh's GBM, GBN), k-tiles of
+# CONV_BK input channels in bf16 (GBK) and FMA_BK in fp32 (BKC), boxes at most
+# CONV_BW pixels wide, at most MAX_C3 outputs of the 1x1 conv
+EPI_ROUND, EPI_RESID, EPI_HEAD, EPI_RELU = 0, 1, 2, 3
+CONV_BM, CONV_BN, CONV_BK, FMA_BK, CONV_BW = 128, 128, 64, 32, 64
 MAX_C3 = 16
 
 
@@ -81,6 +89,75 @@ def _conv_plain(x, taps, bias):
     return y + bias.float()
 
 
+def conv3x3_plain(x, taps, bias, epi, relu_in=False, resid=None, base=None, w3=None,
+                  b3=None):
+    """Plain version of one conv launch (``a3r_conv3x3``), in its epilogue's
+    rounding order, on conv(x) (conv(relu(x)) with relu_in) + bias in fp32:
+      EPI_ROUND  round(y)
+      EPI_RELU   round(relu(y))                       (= relu(round(y)))
+      EPI_RESID  round(round(resid + round(y)) + base), base optional
+      EPI_HEAD   relu(y) @ w3 + b3, fp32."""
+    y = _conv_plain(torch.relu(x) if relu_in else x, taps, bias)
+    if epi == EPI_HEAD:
+        return torch.relu(y) @ w3 + b3
+    y = (torch.relu(y) if epi == EPI_RELU else y).to(x.dtype)
+    if epi == EPI_RESID:
+        y = resid + y
+        if base is not None:
+            y = y + base
+    return y
+
+
+def conv_box(W: int) -> tuple[int, int]:
+    """The bf16 kernel's box (BW, BH) at image width W: CONV_BW pixels of a
+    row for W >= CONV_BW, else the power of two >= W, by CONV_BM / BW rows
+    (csrc/dpt_pipeline.cu conv_box_w)."""
+    bw = 1
+    while bw < W and bw < CONV_BW:
+        bw *= 2
+    return bw, CONV_BM // bw
+
+
+def conv_walk(B: int, H: int, W: int, Cout: int):
+    """The bf16 kernel's tiles (b, h0, w0, n0) in its walk order: N fastest,
+    then along W, H and B."""
+    bw, bh = conv_box(W)
+    for b in range(B):
+        for h0 in range(0, H, bh):
+            for w0 in range(0, W, bw):
+                for n0 in range(0, Cout, CONV_BN):
+                    yield b, h0, w0, n0
+
+
+def conv_tiles_plain(x, taps, bias):
+    """conv3x3(x) + bias in fp32, computed as the bf16 kernel walks it: for
+    each tile, each k-tile kt (tap kt // (Cin / CONV_BK), channel block
+    kt % (Cin / CONV_BK)) is the box of BW x BH pixels at (h0 + dh - 1,
+    w0 + dw - 1), zero where it falls outside the image (the TMA's fill: the
+    SAME padding), times rows kt * CONV_BK.. of the (9 Cin, Cout) taps; the
+    tile's pixels past H or W are dropped (the store's clip)."""
+    B, H, W, Cin = x.shape
+    Cout = taps.shape[-1]
+    bw, bh = conv_box(W)
+    wk = taps.reshape(9 * Cin, Cout).float()
+    xp = F.pad(x.float(), (0, 0, 1, bw + 1, 1, bh + 1))   # the zero frame around the image
+    out = torch.empty(B, H, W, Cout)
+    kc = Cin // CONV_BK
+    for b, h0, w0, n0 in conv_walk(B, H, W, Cout):
+        acc = torch.zeros(bh * bw, CONV_BN)
+        for kt in range(9 * kc):
+            tap, cb = divmod(kt, kc)
+            dh, dw = divmod(tap, 3)
+            box = xp[b, h0 + dh:h0 + dh + bh, w0 + dw:w0 + dw + bw,
+                     cb * CONV_BK:(cb + 1) * CONV_BK]
+            acc += box.reshape(bh * bw, CONV_BK) @ wk[kt * CONV_BK:(kt + 1) * CONV_BK,
+                                                      n0:n0 + CONV_BN]
+        tile = (acc + bias[n0:n0 + CONV_BN].float()).reshape(bh, bw, CONV_BN)
+        hs, ws = min(bh, H - h0), min(bw, W - w0)
+        out[b, h0:h0 + hs, w0:w0 + ws, n0:n0 + CONV_BN] = tile[:hs, :ws]
+    return out
+
+
 def res_unit_plain(v, base, w, bias):
     """Plain version of K7, and the twin whose autograd is its backward (the
     JAX _xla_twin, :219-235). w (2, 9, C, C) taps, bias (2, C) fp32."""
@@ -99,7 +176,8 @@ def _check_act(name, t, dtype=None):
 
 
 def _conv(x, taps, bias, out, epi, relu, resid=None, base=None, w3=None, b3=None):
-    """One launch of the implicit-GEMM 3x3 conv kernel (csrc conv3x3_kernel)."""
+    """One launch of the implicit-GEMM 3x3 conv (csrc a3r_conv3x3: conv_sm90
+    in bf16, conv3x3_fp32 in fp32); its plain version is conv3x3_plain."""
     B, H, W, Cin = x.shape
     Cout = taps.shape[-1]
     ptr = lambda t: 0 if t is None else t.data_ptr()
@@ -127,8 +205,9 @@ def _res_unit_cuda(v, base, w, bias):
     bias = bias.float().contiguous()
     a = torch.empty_like(v)
     out = torch.empty_like(v)
-    _conv(v, w[0], bias[0], a, EPI_ROUND, True)
-    _conv(a, w[1], bias[1], out, EPI_RESID, True, resid=v, base=base)
+    # conv 2's operand ReLU is conv 1's epilogue: a holds relu(a)
+    _conv(v, w[0], bias[0], a, EPI_RELU, True)
+    _conv(a, w[1], bias[1], out, EPI_RESID, False, resid=v, base=base)
     fused_res_unit.launches += 1
     return out
 
@@ -173,22 +252,35 @@ def _interp_taps(n_in: int, n_out: int, round_bf16: bool):
     return idx, wt
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_taps_on(n_in: int, n_out: int, round_bf16: bool, device: str):
+    """_interp_taps as tensors on `device`, made once: a call on the card then
+    copies nothing from the host (and can be captured in a CUDA graph)."""
+    return tuple(torch.from_numpy(a).to(device) for a in _interp_taps(n_in, n_out, round_bf16))
+
+
 def _head_weights(p1, p2, p3, dtype):
     (w1, b1), (w2, b2), (w3, b3) = p1, p2, p3
     return (_taps(w1).to(dtype), b1.float(), _taps(w2).to(dtype), b2.float(),
             w3[:, :, 0, 0].t().float(), b3.float())
 
 
+def upsample2x_plain(h1):
+    """Plain version of K8's upsample launch: 2x align_corners, columns first
+    with the column weights in h1's dtype (rounded), then rows with fp32
+    weights (rounded)."""
+    B, Hin, Win, _ = h1.shape
+    aw = torch.from_numpy(_interp_matrix(Win, 2 * Win, True)).to(h1.device)
+    ah = torch.from_numpy(_interp_matrix(Hin, 2 * Hin, True)).to(h1.device)
+    h1w = torch.einsum("ow,bhwc->bhoc", aw.to(h1.dtype).float(), h1.float()).to(h1.dtype)
+    return torch.einsum("oh,bhwc->bowc", ah, h1w.float()).to(h1.dtype)
+
+
 def head_final_plain(x, w1, b1, w2, b2, w3, b3):
     """Plain version of K8. w1 (9, C1, C2), w2 (9, C2, C2) taps in x's dtype;
     w3 (C2, Cout) fp32; biases fp32. Returns (B, 2Hin, 2Win, Cout) fp32."""
-    B, Hin, Win, _ = x.shape
     h1 = _conv_plain(x, w1, b1).to(x.dtype)
-    aw = torch.from_numpy(_interp_matrix(Win, 2 * Win, True)).to(x.device)
-    ah = torch.from_numpy(_interp_matrix(Hin, 2 * Hin, True)).to(x.device)
-    h1w = torch.einsum("ow,bhwc->bhoc", aw.to(x.dtype).float(), h1.float()).to(x.dtype)
-    h2 = torch.einsum("oh,bhwc->bowc", ah, h1w.float()).to(x.dtype)
-    a2 = torch.relu(_conv_plain(h2, w2, b2))
+    a2 = torch.relu(_conv_plain(upsample2x_plain(h1), w2, b2))
     return a2 @ w3 + b3
 
 
@@ -196,19 +288,19 @@ def _head_final_cuda(x, w1, b1, w2, b2, w3, b3):
     B, Hin, Win, C1 = x.shape
     C2, Cout = w1.shape[-1], w3.shape[-1]
     _check_act("x", x)
-    if (C1 % 32 or C2 != 128 or tuple(w1.shape) != (9, C1, C2)
+    bk = CONV_BK if x.dtype == torch.bfloat16 else FMA_BK
+    if (C1 % bk or C2 != 128 or tuple(w1.shape) != (9, C1, C2)
             or tuple(w2.shape) != (9, C2, C2) or tuple(w3.shape) != (C2, Cout)
             or not 1 <= Cout <= MAX_C3):
-        raise ValueError(f"K8 needs C1 % 32 == 0, 128 mid channels and 1..{MAX_C3} "
+        raise ValueError(f"K8 needs C1 % {bk} == 0 ({x.dtype}), 128 mid channels and 1..{MAX_C3} "
                          f"outputs; got x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
                          f"w2 {tuple(w2.shape)}, w3 {tuple(w3.shape)}")
     dev, dt = x.device, x.dtype
     x = _lib.dense(x)
     w1, w2 = _lib.dense(w1.to(dt)), _lib.dense(w2.to(dt))
     b1, b2, w3, b3 = (t.float().contiguous() for t in (b1, b2, w3, b3))
-    hidx, hwt = (torch.from_numpy(a).to(dev) for a in _interp_taps(Hin, 2 * Hin, False))
-    widx, wwt = (torch.from_numpy(a).to(dev)
-                 for a in _interp_taps(Win, 2 * Win, dt == torch.bfloat16))
+    hidx, hwt = _interp_taps_on(Hin, 2 * Hin, False, str(dev))
+    widx, wwt = _interp_taps_on(Win, 2 * Win, dt == torch.bfloat16, str(dev))
     h1 = torch.empty(B, Hin, Win, C2, device=dev, dtype=dt)
     _conv(x, w1, b1, h1, EPI_ROUND, False)
     h2 = torch.empty(B, 2 * Hin, 2 * Win, C2, device=dev, dtype=dt)

@@ -114,9 +114,10 @@ def profile_mlp(dev, gen, name, G, B, C, reps: int = 10) -> dict:
     return split_site(f"{name} G={G} B={B} N={N} C={C} F={F}", site, MLP_PARTS, reps)
 
 
-def split_site(label, site, parts, reps) -> dict:
-    """The site's device time from a CUDA graph, and its kernels' device time
-    by part under torch.profiler."""
+def split_site(label, site, parts, reps, graph: bool = True) -> dict:
+    """The site's device time from a CUDA graph (None with graph=False, for
+    a call that cannot be captured), and its kernels' device time by part
+    under torch.profiler."""
     for _ in range(3):
         site()
     torch.cuda.synchronize()
@@ -132,18 +133,18 @@ def split_site(label, site, parts, reps) -> dict:
             split[part(e.name, parts)] += e.device_time / 1e3 / reps
             names[e.name[:100]] += e.device_time / 1e3 / reps
     total = sum(split.values())
-    return {"site": label, "graph_ms": graph_ms(site), "kernel_sum_ms": total,
+    return {"site": label, "graph_ms": graph_ms(site) if graph else None, "kernel_sum_ms": total,
             "split_ms": dict(sorted(split.items(), key=lambda kv: -kv[1])),
             "split_share": {k: v / total for k, v in split.items()},
             "kernels_ms": dict(sorted(names.items(), key=lambda kv: -kv[1]))}
 
 
-def engine_rates(dev) -> dict:
-    """Two warm runs of the serving engine at VIT_L_512 on 24 synthetic
-    512x288 frames (190 pairs, batch 32)."""
+def serving_setup(dev):
+    """VIT_L_512 from seeded weights (prepared in bf16) and chip_smoke.py's
+    24 synthetic 512x288 frames with their priors and pairs (190, the
+    swinstride-5 graph). Returns (pm, imgs, priors, pairs)."""
     import numpy as np
     from align3r_tpu_torch.geometry.core import pixel_to_pointcloud
-    from align3r_tpu_torch.inference.engine import inference
     from align3r_tpu_torch.inference.pairs import make_pairs
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
     from align3r_tpu_torch.models.config import VIT_L_512
@@ -165,7 +166,14 @@ def engine_rates(dev) -> dict:
     depth = torch.from_numpy((2.0 + 0.5 * np.sin(xx / 60) + 0.3 * np.cos(yy / 45))
                              .astype(np.float32))
     priors = np.stack([pixel_to_pointcloud(depth, 500.0).numpy()] * n)
-    pairs = make_pairs(n, "swinstride-5-noncyclic", symmetrize=True)
+    return pm, imgs, priors, make_pairs(n, "swinstride-5-noncyclic", symmetrize=True)
+
+
+def engine_rates(dev) -> dict:
+    """Two warm runs of the serving engine at VIT_L_512 on 24 synthetic
+    512x288 frames (190 pairs, batch 32)."""
+    from align3r_tpu_torch.inference.engine import inference
+    pm, imgs, priors, pairs = serving_setup(dev)
     inference(pairs, pm, imgs, priors, batch_size=32)   # cold: cuDNN picks its algorithms
     torch.cuda.synchronize()
     secs = []

@@ -9,8 +9,9 @@ final result line:
   2. build    - compiles the port's CUDA kernels (align3r_tpu_torch/csrc)
                 with nvcc into build/ and prints the seconds it took, and
                 each kernel's registers and spill bytes (ptxas -v). Every
-                instance of the GEMM core (gemm_sm90) must spill nothing and
-                its SASS (cuobjdump -sass) must hold HGMMA instructions.
+                instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
+                bf16 conv_sm90, 4 each) must spill nothing and its SASS
+                (cuobjdump -sass) must hold HGMMA instructions.
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events; K1
@@ -79,7 +80,8 @@ final result line:
                 K6; finite losses, frozen weights bit-identical, trainable
                 ones moved, checkpoint-final.pth reloads strictly.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
-a base), K8 (the head tail at the main path's shape, and fp32) and K9
+a base), K8 (the head tail at the main path's shape, and fp32), both timed
+from a CUDA graph and split by launch beside the XLA-path chain, and K9
 (forward and backward at the 512x512 training shapes, a ragged length, fp32,
 D = 128 and D = 256) to their plain versions. Then the card line as nvidia-smi
 prints it, one JSON line with the kernels (time, plain time, bound, launches
@@ -144,9 +146,14 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
+# the instances of the Hopper GEMM core (gemm.cuh), by kernel name: K1/K2's
+# GEMM (4 epilogues) and K7/K8's bf16 3x3 conv (4 epilogues)
+CORE_INSTANCES = {"gemm_sm90": 4, "conv_sm90": 4}
+
+
 def hgmma_counts(lib_path) -> dict:
-    """{GEMM kernel (mangled name): HGMMA instructions in its SASS}, from
-    cuobjdump -sass on the built library."""
+    """{GEMM-core kernel (mangled name): HGMMA instructions in its SASS},
+    from cuobjdump -sass on the built library."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -154,7 +161,7 @@ def hgmma_counts(lib_path) -> dict:
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if "gemm" in name:
+        if any(k in name for k in CORE_INSTANCES):
             out[name] = fn.count("HGMMA")
     return out
 
@@ -509,11 +516,15 @@ def check_k7(dev, gen):
     (1.6e-2 x max): both round each conv's fp32 sum plus bias to bf16 at the
     same points, summed in another order. Beside it, the port's XLA-path
     residual unit on the same inputs (the default head's chain: cuDNN
-    convolutions), the comparison later PRs need; no single PyTorch call
-    computes the unit."""
+    convolutions); no single PyTorch call computes the unit. Both are timed
+    from a CUDA graph (`ms_eager`: the unit launched one by one), and the
+    unit's device time is split by launch under torch.profiler (conv 1,
+    conv 2 with the residual, the weights' stack and cast as `other`)."""
     import torch
     from align3r_tpu_torch.models.dpt_head import _residual_conv_unit
     from align3r_tpu_torch.ops import dpt_pipeline as dp
+    from align3r_tpu_torch.tools.profile_heads import K7_PARTS
+    from align3r_tpu_torch.tools.profile_site import split_site
     torch.backends.cudnn.allow_tf32 = False
     C = 256
     rows = []
@@ -536,12 +547,14 @@ def check_k7(dev, gen):
             act = px * C * 2
             b_ms, b_by = bound(act * (3 if bs is not None else 2) + 2 * 9 * C * C * 2 + 2 * C * 4,
                                2 * 2 * 9 * C * C * px, PEAK_BF16)
-            rows.append(dict(kernel="K7", shape=f"({BATCH}, {hw[0]}, {hw[1]}, {C}) bf16"
-                             f"{' + base' if bs is not None else ''}",
+            shape = f"({BATCH}, {hw[0]}, {hw[1]}, {C}) bf16{' + base' if bs is not None else ''}"
+            split = split_site(shape, kern, K7_PARTS, 10)
+            rows.append(dict(kernel="K7", shape=shape,
                              max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
                              ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
-                             ms=cuda_time(kern, 10), plain_ms=cuda_time(plain, 2),
-                             library_ms=None, xla_chain_ms=cuda_time(xla, 10),
+                             ms=split["graph_ms"], ms_eager=cuda_time(kern, 10),
+                             split_ms=split["split_ms"], plain_ms=cuda_time(plain, 2),
+                             library_ms=None, xla_chain_ms=graph_time(xla, 10),
                              bound_ms=b_ms, bound_by=b_by))
             del out, ref
         del v, base
@@ -555,10 +568,14 @@ def check_k8(dev, gen):
     max|plain| in bf16 (h1, the column mix and the row mix are rounded at the
     same points on both sides after fp32 sums in another order); 1e-4 x max
     in fp32. Beside it, the port's XLA-path head tail on the same inputs (the
-    default head's chain); no single PyTorch call computes the tail."""
+    default head's chain); no single PyTorch call computes the tail. Both
+    from a CUDA graph (`ms_eager`: one by one), the tail's device time split
+    by launch (conv 1, the upsample, conv 2 with the 1x1)."""
     import torch
     from align3r_tpu_torch.models import nn as L
     from align3r_tpu_torch.ops import dpt_pipeline as dp
+    from align3r_tpu_torch.tools.profile_heads import K8_PARTS
+    from align3r_tpu_torch.tools.profile_site import split_site
     torch.backends.cudnn.allow_tf32 = False
     rows = []
     for shape, dt in (((BATCH, 144, 256, 256), torch.bfloat16),
@@ -594,12 +611,15 @@ def check_k8(dev, gen):
         t_ops = (ops16 / peak + ops32 / PEAK_FP32) * 1e3
         t_bytes = (px_in * C1 * isz + px_out * Co * 4 + 9 * (C1 + C2) * C2 * isz) / HBM_BYTES_S * 1e3
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        rows.append(dict(kernel="K8", shape=f"{tuple(shape)} {'bf16' if isz == 2 else 'fp32'}"
-                         f" -> ({B_}, {2 * Hin}, {2 * Win}, {Co}) fp32",
+        label = (f"{tuple(shape)} {'bf16' if isz == 2 else 'fp32'} -> "
+                 f"({B_}, {2 * Hin}, {2 * Win}, {Co}) fp32")
+        split = split_site(label, kern, K8_PARTS, 5)
+        rows.append(dict(kernel="K8", shape=label,
                          max_abs_err=err, max_rel_err=rel, tol=tol,
                          ok=err <= tol and torch.isfinite(out).all().item(),
-                         ms=cuda_time(kern, 5), plain_ms=cuda_time(plain, 2, warmup=1),
-                         library_ms=None, xla_chain_ms=cuda_time(xla, 5),
+                         ms=split["graph_ms"], ms_eager=cuda_time(kern, 5),
+                         split_ms=split["split_ms"], plain_ms=cuda_time(plain, 2, warmup=1),
+                         library_ms=None, xla_chain_ms=graph_time(xla, 5),
                          bound_ms=b_ms, bound_by=b_by))
         del x, out, ref
     return rows
@@ -1377,15 +1397,19 @@ def main() -> int:
         print("build: ptxas registers and spill bytes " + json.dumps(usage), flush=True)
         print("build: kernels that spill " + json.dumps(
             [k for k, (_, st, ld) in usage.items() if st or ld]), flush=True)
-        gemm_sass = hgmma_counts(path)
-        print("build: HGMMA instructions per GEMM instance " + json.dumps(gemm_sass), flush=True)
-        gemms = {k: v for k, v in usage.items() if "gemm" in k}
-        bad = [k for k, (_, st, ld) in gemms.items() if st or ld or "gemm_sm90" not in k]
-        if len(gemms) != 4 or bad or sorted(gemm_sass) != sorted(gemms) or not all(
-                gemm_sass.values()):
-            return fail(phase, f"GEMM instances: {len(gemms)} (4 expected), spilling or "
-                               f"not the sm90 core: {bad}; without HGMMA: "
-                               f"{[k for k, n in gemm_sass.items() if not n]}")
+        core_sass = hgmma_counts(path)
+        print("build: HGMMA instructions per GEMM-core instance " + json.dumps(core_sass),
+              flush=True)
+        core = {k: v for k, v in usage.items() if any(n in k for n in CORE_INSTANCES)}
+        counts = {n: sum(n in k for k in core) for n in CORE_INSTANCES}
+        bad = [k for k, (_, st, ld) in core.items() if st or ld]
+        stray = [k for k in usage if ("gemm" in k or "conv" in k) and k not in core
+                 and "conv3x3_fp32" not in k]
+        if (counts != CORE_INSTANCES or bad or stray or sorted(core_sass) != sorted(core)
+                or not all(core_sass.values())):
+            return fail(phase, f"GEMM-core instances {counts} ({CORE_INSTANCES} expected); "
+                               f"spilling: {bad}; not on the sm90 core: {stray}; without "
+                               f"HGMMA: {[k for k, n in core_sass.items() if not n]}")
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1493,7 +1517,7 @@ def main() -> int:
                             "shape", "ms", "ms_eager", "ms_graph", "ms_unsorted", "plain_ms",
                             "library_ms", "library_ms_eager", "ms_over_library", "k6_ms",
                             "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
-                            "products_bound", "xla_chain_ms", "bound_ms", "bound_by",
+                            "products_bound", "xla_chain_ms", "split_ms", "bound_ms", "bound_by",
                             "max_abs_err", "tiles", "rounds", "tflops")}
                                    for r in mine]})
     print(card, flush=True)

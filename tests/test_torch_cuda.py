@@ -23,7 +23,10 @@ launch (gemm.cuh), every epilogue at 135 rows over G = 2 and at the main
 path's shapes, K = 4096 (the ring wraps many times), N = 128 (one tile) and
 3072, grids of fewer tiles than SMs (a single row, K = 64), two launches
 that give the same bits, and the inputs it refuses; for K7 and K8, pixel counts that are not a multiple of
-the 128-pixel conv tile.
+the 128-pixel conv tile, K7 at each refinenet level's width (128, 64, 32,
+16) with a ragged height, K8 at widths that are not a multiple of the
+box width, that the bf16 convs launch the sm90 conv kernels (by the
+profiler's kernel names) and the input channels the bf16 path refuses.
 Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
 K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
 same points after fp32 sums in another order), 1e-4 of the largest value
@@ -656,7 +659,8 @@ def _unit(g, dev, C):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 9, 16, 256), (1, 7, 11, 128)])
+@pytest.mark.parametrize("shape", [(2, 9, 16, 256), (1, 7, 11, 128), (1, 5, 128, 256),
+                                   (2, 9, 64, 256), (1, 7, 32, 256)])
 def test_res_unit_kernel(dev, dtype, shape):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(11)
@@ -673,7 +677,7 @@ def test_res_unit_kernel(dev, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(2, 12, 20, 256), (1, 8, 16, 128)])
+@pytest.mark.parametrize("shape", [(2, 12, 20, 256), (1, 8, 16, 128), (1, 9, 100, 128)])
 def test_head_final_kernel(dev, dtype, shape):
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(12)
@@ -692,6 +696,75 @@ def test_head_final_kernel(dev, dtype, shape):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == (shape[0], 2 * shape[1], 2 * shape[2], 4)
     _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("C3", [1, 3, 16])
+def test_head_final_kernel_output_counts(dev, C3):
+    """The 1x1 conv's outputs C3 in 1..16: w3 padded to a multiple of 4 in
+    shared memory, scalar stores where C3 % 4 != 0; two launches give the
+    same bits (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(1, 8, 24, 128, generator=g, device=dev).to(torch.bfloat16)
+    p1 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / 34,
+          0.1 * torch.randn(128, generator=g, device=dev))
+    p2 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / 34,
+          0.1 * torch.randn(128, generator=g, device=dev))
+    p3 = (torch.randn(C3, 128, 1, 1, generator=g, device=dev) / 11,
+          0.1 * torch.randn(C3, generator=g, device=dev))
+    out, again = dp.fused_head_final(x, p1, p2, p3), dp.fused_head_final(x, p1, p2, p3)
+    ref = dp.head_final_plain(x, *dp._head_weights(p1, p2, p3, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert out.shape == (1, 16, 48, C3) and torch.equal(out, again)
+    _close(out, ref, torch.bfloat16)
+
+
+def _kernel_names(fn):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_bf16_convs_launch_the_sm90_kernels(dev):
+    """K7's and K8's bf16 convs run on the GEMM core's conv instances
+    (conv_sm90<EPI>: relu, resid; round, head), the fp32 ones on the FMA
+    kernel, and each path's upsample on the 16-byte kernel."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    v = torch.randn(1, 9, 16, 256, generator=g, device=dev).to(bf)
+    unit = _unit(g, dev, 256)
+    x = torch.randn(1, 8, 16, 256, generator=g, device=dev).to(bf)
+    p1 = (torch.randn(128, 256, 3, 3, generator=g, device=dev) / 48, torch.zeros(128, device=dev))
+    p2 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / 34, torch.zeros(128, device=dev))
+    p3 = (torch.randn(4, 128, 1, 1, generator=g, device=dev) / 11, torch.zeros(4, device=dev))
+    for dtype, want in ((bf, ("conv_sm90<3>", "conv_sm90<1>", "conv_sm90<0>", "conv_sm90<2>")),
+                        (torch.float32, ("conv3x3_fp32<3, true>", "conv3x3_fp32<1, false>",
+                                         "conv3x3_fp32<0, false>", "conv3x3_fp32<2, false>"))):
+        names = _kernel_names(lambda: (dp.fused_res_unit(v.to(dtype), unit, v.to(dtype)),
+                                       dp.fused_head_final(x.to(dtype), p1, p2, p3)))
+        convs = [n for n in names if "conv" in n]
+        assert len(convs) == 4 and all(sum(w in c for c in convs) == 1 for w in want), convs
+        assert sum("upsample2x_kernel" in n for n in names) == 1
+
+
+def test_conv_refuses_unsupported(dev):
+    """The bf16 convs need Cin % 64 (a k-tile is one 128-byte swizzle row);
+    fp32 takes Cin % 32; fp16 is refused."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    p1 = (torch.randn(128, 96, 3, 3, generator=g, device=dev) / 30, torch.zeros(128, device=dev))
+    p2 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / 34, torch.zeros(128, device=dev))
+    p3 = (torch.randn(4, 128, 1, 1, generator=g, device=dev) / 11, torch.zeros(4, device=dev))
+    x = torch.randn(1, 8, 16, 96, generator=g, device=dev)
+    with pytest.raises(ValueError, match="C1 % 64"):
+        dp.fused_head_final(x.to(torch.bfloat16), p1, p2, p3)
+    out = dp.fused_head_final(x, p1, p2, p3)
+    ref = dp.head_final_plain(x, *dp._head_weights(p1, p2, p3, torch.float32))
+    torch.cuda.synchronize()
+    _close(out, ref, torch.float32)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        dp.fused_res_unit(torch.zeros(1, 8, 16, 128, device=dev, dtype=torch.float16),
+                          _unit(g, dev, 128))
 
 
 def test_512x512_training_forward_takes_k9(dev):
