@@ -16,8 +16,12 @@ frozen observations get none. K5 ``permute_packed`` replaces the Pallas
 
 Layout (csrc/edge_loss.cu says why): observations are packed once per solve
 channel-major, pred (e2, 3, A) and w (e2, A), bf16 or fp32; proj (n, 3, A)
-fp32; idx (e2,) int32; and for the backward a CSR list of each image's terms
-(``order`` (e2,), ``offsets`` (n + 1,)), built by :func:`term_csr`.
+fp32; idx (e2,) int32; and a CSR list of each image's terms (``order``
+(e2,), ``offsets`` (n + 1,)), built by :func:`term_csr`, which both kernels
+walk: a block owns a (tile of EDGE_TILE pixels, image) pair.
+:func:`edge_loss_fwd_tiles_plain` / :func:`edge_loss_bwd_tiles_plain` are
+the kernels' blocked form in PyTorch (the same pairs, partials and second
+passes), for the CPU tests.
 
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the kernel
 (counted on the wrapper's ``launches``) or raise. There is no fallback.
@@ -30,6 +34,20 @@ import torch
 from align3r_tpu_torch.ops import _lib
 
 EPS = 1e-12  # must match geometry.core.safe_norm
+
+# the kernels' walk (csrc/edge_loss.cu): 256 threads of 4 pixels a block,
+# a ring of EDGE_STAGES terms, the block meeting every EDGE_MAXT terms
+# (K4), and K3's second pass summing EDGE_SUM_BLOCK partials a block
+EDGE_THREADS, EDGE_PPT = 256, 4
+EDGE_TILE = EDGE_THREADS * EDGE_PPT
+EDGE_STAGES = {torch.bfloat16: 4, torch.float32: 3}
+EDGE_MAXT = 32
+EDGE_SUM_BLOCK = 256
+
+
+def edge_tiles(A: int) -> int:
+    """Pixel tiles of a row: each (tile, image) pair is one block."""
+    return -(-A // EDGE_TILE)
 
 
 def fold_pose_adaptors(pw_poses_44, adaptors):
@@ -77,66 +95,136 @@ def edge_loss_bwd_plain(g, proj, pw34, pred, w, idx):
     return dproj, torch.cat([dm, dt], dim=-1)
 
 
-def _check_cuda(proj, pw34, pred, w, idx):
+def _tiled(x, tiles: int):
+    """(..., A) -> (..., tiles, EDGE_TILE), zero past A."""
+    A = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, tiles * EDGE_TILE - A)).reshape(
+        *x.shape[:-1], tiles, EDGE_TILE)
+
+
+def _walk(proj, pw34, pred, w, order, offsets):
+    """The kernels' walk in PyTorch: per image, its terms (CSR order), the
+    residuals r (k, 3, tiles, TILE), pred [p; 1] (k, 4, tiles, TILE) and
+    w (k, tiles, TILE) on the zero-padded tiles. Padded pixels have w = 0."""
+    A = proj.shape[-1]
+    tiles = edge_tiles(A)
+    offsets = offsets.tolist()
+    for img in range(proj.shape[0]):
+        terms = order[offsets[img]:offsets[img + 1]].long()
+        pd = _tiled(pred.index_select(0, terms).float(), tiles)
+        p1 = torch.cat([pd, torch.ones_like(pd[:, :1])], dim=1)
+        al = torch.einsum("eck,ekta->ecta", pw34.index_select(0, terms), p1)
+        r = _tiled(proj[img].float(), tiles)[None] - al
+        yield img, terms, r, p1, _tiled(w.index_select(0, terms).float(), tiles)
+
+
+def edge_loss_fwd_tiles_plain(proj, pw34, pred, w, idx, order, offsets):
+    """K3 in its blocked form: one partial per (tile, image) pair (the sum
+    over the image's terms of w d on the tile), then the second pass: sums of
+    EDGE_SUM_BLOCK partials in image-major order, and their sum."""
+    del idx                                     # the walk reads the CSR
+    tiles = edge_tiles(proj.shape[-1])
+    partials = torch.zeros(proj.shape[0], tiles, dtype=torch.float32, device=proj.device)
+    for img, _, r, _, wt in _walk(proj, pw34, pred, w, order, offsets):
+        sq = (r * r).sum(dim=1)
+        d = torch.where(sq > 0, torch.sqrt(torch.clamp(sq, min=EPS)), torch.zeros_like(sq))
+        partials[img] = (wt * d).sum(dim=(0, 2))
+    flat = partials.reshape(-1)
+    blocks = -(-flat.numel() // EDGE_SUM_BLOCK)
+    level = torch.nn.functional.pad(flat, (0, blocks * EDGE_SUM_BLOCK - flat.numel()))
+    return level.reshape(blocks, EDGE_SUM_BLOCK).sum(dim=1).sum()
+
+
+def edge_loss_bwd_tiles_plain(g, proj, pw34, pred, w, idx, order, offsets):
+    """K4 in its blocked form: each (tile, image) pair sums dproj over the
+    image's terms and writes one 12-value dM partial per (term, tile); the
+    second pass sums each (term, value) over its tiles in tile order."""
+    del idx
+    n, _, A = proj.shape
+    tiles = edge_tiles(A)
+    e2 = pred.shape[0]
+    dproj = torch.zeros(n, 3, tiles, EDGE_TILE, dtype=torch.float32, device=proj.device)
+    partials = torch.zeros(e2, 3, 4, tiles, dtype=torch.float32, device=proj.device)
+    for img, terms, r, p1, wt in _walk(proj, pw34, pred, w, order, offsets):
+        sq = (r * r).sum(dim=1)
+        scale = torch.where(sq > EPS, g * wt * torch.rsqrt(sq), torch.zeros_like(sq))
+        u = scale[:, None] * r                                # (k, 3, tiles, TILE)
+        dproj[img] = u.sum(dim=0)
+        partials[terms] = -torch.einsum("ecta,ekta->eckt", u, p1)
+    return dproj.reshape(n, 3, -1)[..., :A].contiguous(), partials.sum(dim=-1)
+
+
+def _check_cuda(proj, pw34, pred, w, idx, order, offsets):
+    """Raise on what K3/K4 cannot take; return 1 when every row is 16-byte
+    aligned (the ring's bulk copies), else 0 (the element path)."""
     if pred.dtype not in (torch.bfloat16, torch.float32) or w.dtype != pred.dtype:
         raise ValueError(f"K3/K4 store observations in bf16 or fp32; got "
                          f"pred {pred.dtype}, w {w.dtype}")
     for name, t, dt in (("proj", proj, torch.float32),
                         ("pw34", pw34, torch.float32),
-                        ("idx", idx, torch.int32)):
+                        ("idx", idx, torch.int32), ("order", order, torch.int32),
+                        ("offsets", offsets, torch.int32)):
         if t.dtype != dt or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"K3/K4: {name} must be contiguous {dt} on CUDA")
     e2, three, A = pred.shape
+    n = proj.shape[0]
     if (three != 3 or proj.shape[1:] != (3, A) or w.shape != (e2, A)
             or pw34.shape != (e2, 3, 4) or idx.shape != (e2,)
-            or not pred.is_contiguous() or not w.is_contiguous()):
-        raise ValueError("K3/K4: inconsistent shapes or layout")
+            or order.shape != (e2,) or offsets.shape != (n + 1,)
+            or not all(t.is_cuda and t.is_contiguous() for t in (pred, w))):
+        raise ValueError("K3/K4: inconsistent shapes or layout (order, offsets: "
+                         "term_csr(idx, n))")
+    if min(n, e2, A) < 1 or A > 2 ** 31 - 1 - EDGE_TILE:
+        raise ValueError(f"K3/K4 take 1 <= n, e2 and 1 <= A < 2^31 - {EDGE_TILE}; "
+                         f"got {n}, {e2}, {A}")
+    return int((A * pred.element_size()) % 16 == 0 and A % 4 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (proj, pw34, pred, w)))
 
 
-def edge_loss_fwd(proj, pw34, pred, w, idx):
-    """K3: the scalar loss (fp32)."""
+def edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets):
+    """K3: the scalar loss (fp32). order, offsets = term_csr(idx, n), on the
+    card; the plain version (CPU tensors) reads idx alone."""
     if not proj.is_cuda:
         return edge_loss_fwd_plain(proj, pw34, pred, w, idx)
-    _check_cuda(proj, pw34, pred, w, idx)
+    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets)
     lib = _lib.library()
-    e2, _, A = pred.shape
-    partials = torch.empty(lib.a3r_edge_tiles(A) * e2, dtype=torch.float32,
-                           device=proj.device)
-    out = torch.empty((), dtype=torch.float32, device=proj.device)
-    _lib.check(lib.a3r_edge_fwd(proj.data_ptr(), pw34.data_ptr(),
-                                pred.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                                partials.data_ptr(), out.data_ptr(), e2, A,
-                                int(pred.dtype == torch.bfloat16),
-                                _lib.stream()), "K3 edge_loss_fwd")
+    n, A = proj.shape[0], pred.shape[-1]
+    P = edge_tiles(A) * n
+    blocks = -(-P // EDGE_SUM_BLOCK)
+    # the partials, the second pass's block sums, its ticket and the loss
+    scratch = torch.empty(P + blocks + 2, dtype=torch.float32, device=proj.device)
+    ptr = scratch.data_ptr()
+    _lib.check(lib.a3r_edge_fwd(proj.data_ptr(), pw34.data_ptr(), pred.data_ptr(),
+                                w.data_ptr(), order.data_ptr(), offsets.data_ptr(), ptr,
+                                ptr + 4 * P, ptr + 4 * (P + blocks),
+                                ptr + 4 * (P + blocks + 1), n, A, vec,
+                                int(pred.dtype == torch.bfloat16), _lib.stream()),
+               "K3 edge_loss_fwd")
     edge_loss_fwd.launches += 1
-    return out
+    return scratch[-1]
 
 
 edge_loss_fwd.launches = 0
 
 
 def edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets):
-    """K4: (dproj (n, 3, A) fp32, dM (e2, 3, 4) fp32) for upstream g."""
+    """K4: (dproj (n, 3, A) fp32, dM (e2, 3, 4) fp32) for upstream g.
+    order, offsets = term_csr(idx, n), on the card."""
     if not proj.is_cuda:
         return edge_loss_bwd_plain(g, proj, pw34, pred, w, idx)
-    _check_cuda(proj, pw34, pred, w, idx)
-    n = proj.shape[0]
-    if (order.dtype != torch.int32 or offsets.dtype != torch.int32
-            or not order.is_cuda or offsets.shape != (n + 1,)):
-        raise ValueError("K4: order/offsets must be int32 CUDA CSR of n images")
+    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets)
     lib = _lib.library()
-    e2, _, A = pred.shape
-    tiles = lib.a3r_edge_tiles(A)
+    n, e2, A = proj.shape[0], pred.shape[0], pred.shape[-1]
     g = g.reshape(1).float().contiguous()
     dproj = torch.empty_like(proj)
-    partials = torch.empty(e2 * tiles * 12, dtype=torch.float32,
+    partials = torch.empty(e2 * 12 * edge_tiles(A), dtype=torch.float32,
                            device=proj.device)
     dm = torch.empty((e2, 3, 4), dtype=torch.float32, device=proj.device)
     _lib.check(lib.a3r_edge_bwd(proj.data_ptr(), pw34.data_ptr(),
                                 pred.data_ptr(), w.data_ptr(),
                                 order.data_ptr(), offsets.data_ptr(),
                                 g.data_ptr(), dproj.data_ptr(),
-                                partials.data_ptr(), dm.data_ptr(), n, e2, A,
+                                partials.data_ptr(), dm.data_ptr(), n, e2, A, vec,
                                 int(pred.dtype == torch.bfloat16),
                                 _lib.stream()), "K4 edge_loss_bwd")
     edge_loss_bwd.launches += 1
@@ -206,7 +294,7 @@ class EdgeLoss(torch.autograd.Function):
         proj = proj.contiguous()
         pw34 = pw34.contiguous()
         ctx.save_for_backward(proj, pw34, pred, w, idx, order, offsets)
-        return edge_loss_fwd(proj, pw34, pred, w, idx)
+        return edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
 
     @staticmethod
     def backward(ctx, g):

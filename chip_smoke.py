@@ -8,7 +8,8 @@ final result line:
   1. device   - requires CUDA; prints `nvidia-smi` name and power limit.
   2. build    - compiles the port's CUDA kernels (align3r_tpu_torch/csrc)
                 with nvcc into build/ and prints the seconds it took, and
-                each kernel's registers and spill bytes (ptxas -v). Every
+                each kernel's registers and spill bytes (ptxas -v). K3/K4's
+                kernels must spill nothing. Every
                 instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
                 bf16 conv_sm90, 4 each) must spill nothing and its SASS
                 (cuobjdump -sass) must hold HGMMA instructions.
@@ -17,7 +18,10 @@ final result line:
                 stated tolerance, and the time of each side (CUDA events; K1
                 and K2 sites, the bf16 attention forwards K6 and K9 and the
                 library call beside them replayed from a CUDA graph, since a
-                wrapper's host time can match its kernels'; K9's backward and
+                wrapper's host time can match its kernels'; K3 and K4 the
+                same way, with their split by launch (the walk, the second
+                pass) under torch.profiler and two launches that must give
+                the same bits; K9's backward and
                 SDPA's as the sum of their kernels' device time under
                 torch.profiler). K1's attention launch alone is held to K6 bit
                 for bit on the same heads laid out per head, and timed beside
@@ -35,8 +39,10 @@ final result line:
                 weights) on 24 synthetic 512x288 frames: swinstride-5 graph
                 (190 pairs), batch 32, 300-iteration flow-variant solve. The
                 kernels' launch counters are zeroed right before the call and
-                every kernel must have launched; outputs must be finite and of
-                the expected shapes; the GEMM core must have launched 4
+                every kernel must have launched, K3 and K4 300 times each
+                (240 on the bf16 pack, 60 on the fp32 repack); outputs must
+                be finite and of the expected shapes; the GEMM core must have
+                launched 4
                 times per K1 site and twice per K2 site. A second, warm run
                 gives pairs/s and it/s.
   6. flow     - the same entry point on the demo's flow path: SEA-RAFT
@@ -409,12 +415,36 @@ def check_gemms(dev, gen):
     return rows
 
 
+def kernel_split(fn, reps: int, main: str) -> dict:
+    """Device ms per call of fn()'s kernels under torch.profiler over `reps`
+    calls: those whose name matches the regular expression `main`, and the
+    rest ("second pass")."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {"main": 0.0, "second pass": 0.0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            split["main" if re.search(main, e.name) else "second pass"] += \
+                e.device_time / 1e3 / reps
+    return split
+
+
 def check_edge(dev, gen):
     """K3/K4 against their plain versions at 24 frames (e2 = 380 terms,
     A = 147,456), bf16 and fp32 storage. Tolerance: relative 1e-4 of the
-    largest value (fp32 arithmetic on both sides, sums in another order).
-    Timed with the terms sorted by image, as the pack lays them out (ms), and
-    in the random order of the check (ms_unsorted)."""
+    largest value (fp32 arithmetic on both sides, sums in another order);
+    two launches must give the same bits. Timed from a CUDA graph with the
+    terms sorted by image, as the pack lays them out (ms; `ms_eager`: one by
+    one, CUDA events), and in the random order of the check (ms_unsorted,
+    from a graph); split by launch (the walk, the second pass) under
+    torch.profiler."""
     import torch
     from align3r_tpu_torch.ops import edge_loss as el
     n, e2, A = N_FRAMES, 380, H * W
@@ -428,41 +458,50 @@ def check_edge(dev, gen):
                 + 0.1 * torch.randn(e2, 3, 4, generator=gen, device=dev)).contiguous()
         order, offsets = (t.to(dev) for t in el.term_csr(idx, n))
         g = torch.tensor(1.5, device=dev)
-        kf = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx)
+        kf = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
         pf = lambda: el.edge_loss_fwd_plain(proj, pw34, pred, w, idx)
         kb = lambda: el.edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets)
         pb = lambda: el.edge_loss_bwd_plain(g, proj, pw34, pred, w, idx)
         lk, lp = kf(), pf()
         (dpk, dmk), (dpp, dmp) = kb(), pb()
+        lk2, (dpk2, dmk2) = kf(), kb()
         torch.cuda.synchronize()
+        same_f = torch.equal(lk, lk2)
+        same_b = torch.equal(dpk, dpk2) and torch.equal(dmk, dmk2)
         tag = "bf16" if dt == torch.bfloat16 else "fp32"
         ef = max_err(lk, lp)
-        # bytes: proj, the 3x4 matrices, pred, w, idx; about 30 fp32
-        # operations per (term, pixel): transform, residual, norm, weight
+        # bytes: proj once, the 3x4 matrices, pred, w, the CSR, the loss;
+        # about 30 fp32 operations per (term, pixel): transform, residual,
+        # norm, weight
         isz = 2 if dt == torch.bfloat16 else 4
-        fwd_bytes = n * 3 * A * 4 + e2 * 48 + e2 * 3 * A * isz + e2 * A * isz + e2 * 4
+        fwd_bytes = (n * 3 * A * 4 + e2 * 48 + e2 * 3 * A * isz + e2 * A * isz + e2 * 4
+                     + (n + 1) * 4)
         b_ms, b_by = bound(fwd_bytes + 4, 30 * e2 * A, PEAK_FP32)
         idx_s = torch.sort(idx).values
         order_s, offsets_s = (t.to(dev) for t in el.term_csr(idx_s, n))
-        kf_s = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx_s)
+        kf_s = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx_s, order_s, offsets_s)
         kb_s = lambda: el.edge_loss_bwd(g, proj, pw34, pred, w, idx_s, order_s, offsets_s)
-        rows.append(dict(kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
-                         max_abs_err=ef[0], max_rel_err=ef[1], tol=1e-4 * ef[2],
-                         ok=ef[0] <= 1e-4 * ef[2], ms=cuda_time(kf_s, 20),
-                         ms_unsorted=cuda_time(kf, 20),
-                         plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by))
+        es = max_err(kf_s(), el.edge_loss_fwd_plain(proj, pw34, pred, w, idx_s))
+        rows.append(ratios(dict(
+            kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
+            max_abs_err=max(ef[0], es[0]), max_rel_err=max(ef[1], es[1]), tol=1e-4 * ef[2],
+            ok=ef[0] <= 1e-4 * ef[2] and es[0] <= 1e-4 * es[2] and same_f, same_bits=same_f,
+            ms=graph_time(kf_s, 20), ms_eager=cuda_time(kf_s, 20),
+            ms_unsorted=graph_time(kf, 20), split_ms=kernel_split(kf_s, 10, "edge_fwd"),
+            plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by)))
         e1, e2m = max_err(dpk, dpp), max_err(dmk, dmp)
-        # the forward's reads, plus dproj and dM written; about twice its work
-        b_ms, b_by = bound(fwd_bytes + n * 3 * A * 4 + e2 * 48, 60 * e2 * A, PEAK_FP32)
-        rows.append(dict(kernel="K4", shape=f"{tag} e2={e2} A={A} n={n}",
-                         bound_ms=b_ms, bound_by=b_by,
-                         max_abs_err=max(e1[0], e2m[0]),
-                         max_rel_err=max(e1[1], e2m[1]),
-                         tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
-                         ok=e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2],
-                         ms=cuda_time(kb_s, 20), ms_unsorted=cuda_time(kb, 20),
-                         plain_ms=cuda_time(pb, 3)))
-        del proj, pred, w, dpk, dpp
+        # the forward's reads and g, plus dproj and dM written; about twice
+        # its work
+        b_ms, b_by = bound(fwd_bytes + 4 + n * 3 * A * 4 + e2 * 48, 60 * e2 * A, PEAK_FP32)
+        rows.append(ratios(dict(
+            kernel="K4", shape=f"{tag} e2={e2} A={A} n={n}", bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=max(e1[0], e2m[0]), max_rel_err=max(e1[1], e2m[1]),
+            tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
+            ok=e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2] and same_b,
+            same_bits=same_b, ms=graph_time(kb_s, 20), ms_eager=cuda_time(kb_s, 20),
+            ms_unsorted=graph_time(kb, 20), split_ms=kernel_split(kb_s, 10, "edge_bwd"),
+            plain_ms=cuda_time(pb, 3))))
+        del proj, pred, w, dpk, dpp, dpk2
     return rows
 
 
@@ -884,6 +923,9 @@ def main_path(dev):
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # 300 solve iterations: 240 on the bf16 pack, 60 on the fp32 repack
+    if launches["edge_loss_fwd"] != 300 or launches["edge_loss_bwd"] != 300:
+        raise AssertionError(f"K3/K4 did not launch once per solve iteration: {launches}")
     if launches["gemm"] != 4 * launches["attention_site"] + 2 * launches["mlp_site"]:
         raise AssertionError("the GEMM core did not run every projection of K1 and K2: "
                              f"{launches}")
@@ -1405,6 +1447,9 @@ def main() -> int:
         bad = [k for k, (_, st, ld) in core.items() if st or ld]
         stray = [k for k in usage if ("gemm" in k or "conv" in k) and k not in core
                  and "conv3x3_fp32" not in k]
+        edge_spills = [k for k, (_, st, ld) in usage.items() if "edge" in k and (st or ld)]
+        if edge_spills:
+            return fail(phase, f"K3/K4 kernels spill: {edge_spills}")
         if (counts != CORE_INSTANCES or bad or stray or sorted(core_sass) != sorted(core)
                 or not all(core_sass.values())):
             return fail(phase, f"GEMM-core instances {counts} ({CORE_INSTANCES} expected); "
@@ -1516,6 +1561,7 @@ def main() -> int:
                         "checks": [{k2: r.get(k2) for k2 in (
                             "shape", "ms", "ms_eager", "ms_graph", "ms_unsorted", "plain_ms",
                             "library_ms", "library_ms_eager", "ms_over_library", "k6_ms",
+                            "same_bits",
                             "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
                             "products_bound", "xla_chain_ms", "split_ms", "bound_ms", "bound_by",
                             "max_abs_err", "tiles", "rounds", "tflops")}

@@ -9,7 +9,9 @@ On a machine with an NVIDIA GPU (and nvcc; the kernels build on first use):
 the port nor this file needs.) Shapes are small but exercise the ragged
 edges: token counts that are not a multiple of the 64-row attention tile or
 the 128-row GEMM tile, pixel counts that are not a multiple of the 1024-pixel
-edge-loss tile, and an image with no edge terms; for K6, query and key
+edge-loss tile or whose rows are not 16-byte aligned (odd A), an image with
+no edge terms, terms sorted by image and unsorted, a walk longer than K4's
+dM slots, and two launches of K3/K4 that give the same bits; for K6, query and key
 counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
 padded with zeros (8, 40, 128), one key (the P V product alone) and one key
 tile against V = I (the first product alone); for K9, sequence lengths that
@@ -202,7 +204,7 @@ def test_edge_loss_kernels(dev, dtype):
     pw34 = (torch.eye(3, 4, device=dev)[None]
             + 0.1 * torch.randn(e2, 3, 4, generator=g, device=dev)).contiguous()
     order, offsets = (t.to(dev) for t in el.term_csr(idx, n))
-    loss = el.edge_loss_fwd(proj, pw34, pred, w, idx)
+    loss = el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
     ref = el.edge_loss_fwd_plain(proj, pw34, pred, w, idx)
     assert abs(loss.item() - ref.item()) <= 1e-4 * abs(ref.item())
     gval = torch.tensor(0.7, device=dev)
@@ -211,6 +213,119 @@ def test_edge_loss_kernels(dev, dtype):
     assert (dp[2] == 0).all()                     # image 2 has no terms
     for a, b in ((dp, rdp), (dm, rdm)):
         assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def _edge_case(dev, dtype, A, sort, n=5, e2=23, seed=4):
+    """Inputs of K3/K4 with image 2 given no terms, the terms sorted by image
+    (as the pack lays them out) or in random order, and one exact zero
+    residual (pixel 7 of term 0)."""
+    r = np.random.default_rng(seed)
+    idx = r.choice([0, 1, 3, 4], e2).astype(np.int32)
+    idx[:4] = [0, 1, 3, 4]
+    idx = np.sort(idx) if sort else r.permutation(idx)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    proj = torch.randn(n, 3, A, generator=g, device=dev)
+    pred = torch.randn(e2, 3, A, generator=g, device=dev).to(dtype)
+    w = torch.rand(e2, A, generator=g, device=dev).to(dtype)
+    pw34 = (torch.eye(3, 4, device=dev)[None]
+            + 0.1 * torch.randn(e2, 3, 4, generator=g, device=dev)).contiguous()
+    pw34[0] = torch.eye(3, 4, device=dev)
+    idx_t = torch.from_numpy(idx).to(dev)
+    proj[int(idx[0]), :, 7] = pred[0, :, 7].float()
+    order, offsets = (t.to(dev) for t in el.term_csr(idx_t, n))
+    return proj, pw34, pred, w, idx_t, order, offsets
+
+
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("A", [5000, 1001, 4097, 2 * 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_edge_loss_walk(dev, dtype, A, sort):
+    """K3 and K4 against their plain versions: A over whole ring tiles and a
+    ragged edge tile (5000), whole tiles only (4096), and odd A (1001, 4097:
+    rows off 16 bytes, every tile on the element path); an image with no
+    terms (its dproj 0), terms sorted and unsorted, a zero residual. Two
+    launches give the same bits."""
+    proj, pw34, pred, w, idx, order, offsets = _edge_case(dev, dtype, A, sort)
+    f = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
+    gval = torch.tensor(1.3, device=dev)
+    b = lambda: el.edge_loss_bwd(gval, proj, pw34, pred, w, idx, order, offsets)
+    loss, (dp, dm) = f(), b()
+    ref = el.edge_loss_fwd_plain(proj, pw34, pred, w, idx)
+    rdp, rdm = el.edge_loss_bwd_plain(gval, proj, pw34, pred, w, idx)
+    assert abs(loss.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    for got, want in ((dp, rdp), (dm, rdm)):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert (dp[2] == 0).all()
+    loss2, (dp2, dm2) = f(), b()
+    assert torch.equal(loss, loss2) and torch.equal(dp, dp2) and torch.equal(dm, dm2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_edge_loss_same_bits_at_the_main_shape(dev, dtype):
+    """Eight launches of K3 and of K4 at the main path's shape (24 images,
+    380 terms, 512x288 pixels) give the same bits: a stage of the ring
+    overwritten before every warp has read it shows here as a few blocks
+    off by 1e-5 to 1e-3, inside the tolerance against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, e2, A = 24, 380, 288 * 512
+    proj = torch.randn(n, 3, A, generator=g, device=dev)
+    pred = torch.randn(e2, 3, A, generator=g, device=dev).to(dtype)
+    w = (torch.rand(e2, A, generator=g, device=dev) / (e2 * A)).to(dtype)
+    idx = torch.sort(torch.randint(0, n, (e2,), generator=g, device=dev,
+                                   dtype=torch.int32)).values
+    pw34 = (torch.eye(3, 4, device=dev)[None]
+            + 0.1 * torch.randn(e2, 3, 4, generator=g, device=dev)).contiguous()
+    order, offsets = (t.to(dev) for t in el.term_csr(idx, n))
+    gval = torch.tensor(1.5, device=dev)
+    loss = el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
+    dp, dm = el.edge_loss_bwd(gval, proj, pw34, pred, w, idx, order, offsets)
+    for _ in range(7):
+        assert torch.equal(el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets), loss)
+        dp2, dm2 = el.edge_loss_bwd(gval, proj, pw34, pred, w, idx, order, offsets)
+        assert torch.equal(dp2, dp) and torch.equal(dm2, dm)
+
+
+def test_edge_loss_long_walk(dev):
+    """An image with more terms than the backward's EDGE_MAXT dM slots (the
+    block meets more than once) and many (tile, image) pairs for K3's second
+    pass (several of its blocks)."""
+    n, e2, A = 300, 2 * el.EDGE_MAXT + 5 + 299, 4096
+    idx = np.concatenate([np.zeros(2 * el.EDGE_MAXT + 5, np.int32),
+                          np.arange(1, 300, dtype=np.int32)])
+    g = torch.Generator(device=dev).manual_seed(5)
+    proj = torch.randn(n, 3, A, generator=g, device=dev)
+    pred = torch.randn(e2, 3, A, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.rand(e2, A, generator=g, device=dev).to(torch.bfloat16)
+    pw34 = (torch.eye(3, 4, device=dev)[None]
+            + 0.1 * torch.randn(e2, 3, 4, generator=g, device=dev)).contiguous()
+    idx_t = torch.from_numpy(idx).to(dev)
+    order, offsets = (t.to(dev) for t in el.term_csr(idx_t, n))
+    assert el.edge_tiles(A) * n > 2 * el.EDGE_SUM_BLOCK
+    loss = el.edge_loss_fwd(proj, pw34, pred, w, idx_t, order, offsets)
+    ref = el.edge_loss_fwd_plain(proj, pw34, pred, w, idx_t)
+    assert abs(loss.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    gval = torch.tensor(0.5, device=dev)
+    dp, dm = el.edge_loss_bwd(gval, proj, pw34, pred, w, idx_t, order, offsets)
+    rdp, rdm = el.edge_loss_bwd_plain(gval, proj, pw34, pred, w, idx_t)
+    for got, want in ((dp, rdp), (dm, rdm)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_edge_loss_refuses_unsupported(dev):
+    proj, pw34, pred, w, idx, order, offsets = _edge_case(dev, torch.bfloat16, 1000, True)
+    before = (el.edge_loss_fwd.launches, el.edge_loss_bwd.launches)
+    gval = torch.tensor(1.0, device=dev)
+    for bad in (dict(pred=pred.half(), w=w.half()), dict(order=order.long()),
+                dict(offsets=offsets[:-1]), dict(pred=pred.cpu()),
+                dict(pw34=pw34.double()), dict(w=w.float())):
+        args = {**dict(proj=proj, pw34=pw34, pred=pred, w=w, idx=idx, order=order,
+                       offsets=offsets), **bad}
+        with pytest.raises(ValueError):
+            el.edge_loss_fwd(**args)
+        with pytest.raises(ValueError):
+            el.edge_loss_bwd(gval, **args)
+    assert (el.edge_loss_fwd.launches, el.edge_loss_bwd.launches) == before
 
 
 def test_edge_loss_autograd_on_the_card(dev):
