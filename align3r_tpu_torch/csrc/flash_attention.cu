@@ -37,27 +37,27 @@
 //     where O's registers and the tiles' shared memory leave no room for
 //     128). Up to 3 blocks share an SM, so one block's softmax overlaps
 //     another's products.
-//   bf16 backward at D = 64 and 128: the same core's two backward roles
-//     (flash_bwd_dkv_sm90, flash_bwd_dq_sm90) after flash_bwd_prep, which
-//     writes Di and lse * log2(e) padded to 64-row tiles. Every product is a
-//     wgmma with its accumulator in registers (dK and dV, or dQ, for the
-//     whole loop); P^T, dS^T and dS go from accumulator fragments to the next
-//     product's A operand in registers; Q and dO (dK/dV) or K and V (dQ)
-//     stream through a TMA ring. Two kernels and no atomics keep the result
-//     deterministic; the price is S and dP computed in both.
-//   fp32 forward, and the backward in fp32 and at bf16 D = 256 (simple and
-//     right first): 4 warps per block; every product is a set of 16 x 16
-//     output tiles accumulated in fp32 in shared memory by one warp
-//     (warp_tile below): WMMA bf16 -> fp32 for bf16 inputs, scalar FMA in
-//     fp32 without TF32 for fp32 inputs, as K6's fp32 path. Tiles are staged
-//     with 16-byte cp.async, sized per (dtype, D) in Tiles<T, D> so the
-//     shared memory stays within the 227 KB a block may opt in to; D = 256
-//     takes smaller key or query tiles. They are off the bf16 training
-//     recipes (D = 64).
+//   bf16 backward: the same core's two backward roles (flash_bwd_dkv_sm90,
+//     flash_bwd_dq_sm90) after flash_bwd_prep, which writes Di and
+//     lse * log2(e) padded to 64-row tiles. Every product is a wgmma with its
+//     accumulator in registers (dK and dV, or dQ, for the whole loop); P^T,
+//     dS^T and dS go from accumulator fragments to the next product's A
+//     operand in registers; Q and dO (dK/dV) or K and V (dQ) stream through a
+//     TMA ring. Two kernels and no atomics keep the result deterministic; the
+//     price is S and dP computed in both. At D = 256 the dK/dV block is two
+//     warpgroups, each owning half of dK's and dV's columns and reducing S^T
+//     and dP^T over its half of D (the partials summed through shared
+//     memory), and dQ streams 32-key tiles to two query tiles a block, so
+//     that no accumulator passes 128 registers a thread.
+//   fp32 forward and backward (simple and right first): 4 warps per block;
+//     every product is a set of 16 x 16 output tiles accumulated in fp32 in
+//     shared memory by one warp with scalar FMA (warp_tile below), without
+//     TF32. Tiles are staged with 16-byte cp.async, sized per D in
+//     Tiles<float, D> so the shared memory stays within the 227 KB a block
+//     may opt in to; D = 256 takes smaller key or query tiles. They are off
+//     the bf16 training recipes (D = 64).
 #include "common.cuh"
 #include "sm90_attention.cuh"
-
-#include <mma.h>
 
 #include <type_traits>
 
@@ -73,33 +73,9 @@ struct ColMajor {};
 __host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
 
 // C (16 x 16 fp32, row stride ldc) = (zero ? 0 : C) + A (16 x kdim) B (kdim x
-// 16), computed by the calling warp. A's element (i, k) is A[i * lda + k]
-// (RowMajor) or A[i + k * lda] (ColMajor); B's (k, j) is B[k * ldb + j]
-// (RowMajor) or B[k + j * ldb] (ColMajor). kdim is a multiple of 16.
-template <typename LA, typename LB>
-__device__ __forceinline__ void warp_tile(float* C, int ldc, const bf16* A, int lda,
-                                          const bf16* B, int ldb, int kdim, bool zero) {
-  using namespace nvcuda;
-  using WA = typename std::conditional<std::is_same<LA, RowMajor>::value,
-                                       wmma::row_major, wmma::col_major>::type;
-  using WB = typename std::conditional<std::is_same<LB, RowMajor>::value,
-                                       wmma::row_major, wmma::col_major>::type;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  if (zero)
-    wmma::fill_fragment(acc, 0.0f);
-  else
-    wmma::load_matrix_sync(acc, C, ldc, wmma::mem_row_major);
-  for (int kk = 0; kk < kdim; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, WA> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, WB> b;
-    wmma::load_matrix_sync(a, std::is_same<LA, RowMajor>::value ? A + kk : A + kk * lda, lda);
-    wmma::load_matrix_sync(b, std::is_same<LB, RowMajor>::value ? B + kk * ldb : B + kk, ldb);
-    wmma::mma_sync(acc, a, b, acc);
-  }
-  wmma::store_matrix_sync(C, acc, ldc, wmma::mem_row_major);
-  __syncwarp();
-}
-
+// 16) in fp32 with scalar FMA, computed by the calling warp. A's element
+// (i, k) is A[i * lda + k] (RowMajor) or A[i + k * lda] (ColMajor); B's (k, j)
+// is B[k * ldb + j] (RowMajor) or B[k + j * ldb] (ColMajor).
 template <typename LA, typename LB>
 __device__ __forceinline__ void warp_tile(float* C, int ldc, const float* A, int lda,
                                           const float* B, int ldb, int kdim, bool zero) {
@@ -282,28 +258,28 @@ flash_bwd_prep(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 }
 
-// dK/dV per (head, 64-key tile) and dQ per (head, 64-query tile) on the
-// warpgroup-MMA core of sm90_attention.cuh
-template <int D, int BQK, int MINB>
-__global__ void __launch_bounds__(sm90::THREADS, MINB)
+// dK/dV per (head, 64-key tile) on NWG warpgroups and dQ per (head, NQ
+// 64-query tiles) on NQ, on the warpgroup-MMA core of sm90_attention.cuh
+template <int D, int BQK, int NWG, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS * NWG, MINB)
 flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap tdo, const sm90::BwdRows rows,
                    bf16* __restrict__ dk, bf16* __restrict__ dv) {
-  sm90::attention_bwd_dkv<D, BQK>(tq, tk, tv, tdo, rows, dk, dv);
+  sm90::attention_bwd_dkv<D, BQK, NWG>(tq, tk, tv, tdo, rows, dk, dv);
 }
 
-template <int D, int MINB>
-__global__ void __launch_bounds__(sm90::THREADS, MINB)
+template <int D, int BK, int NQ, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS * NQ, MINB)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   const __grid_constant__ CUtensorMap tdo, const sm90::BwdRows rows,
                   bf16* __restrict__ dq) {
-  sm90::attention_bwd_dq<D>(tq, tk, tv, tdo, rows, dq);
+  sm90::attention_bwd_dq<D, BK, NQ>(tq, tk, tv, tdo, rows, dq);
 }
 
-// ------------------------------------------- fp32 and bf16 D = 256 backward
+// ------------------------------------------------------- fp32 backward
 
 // Di = sum over d of o * do, in fp32: one warp per row
 template <typename T, int D>
@@ -516,17 +492,19 @@ cudaError_t opt_in(Kern kern, int bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Tile sizes: forward (64 queries, BK keys); the WMMA backward's dK/dV (DKV_K
+// Tile sizes: forward (64 queries, BK keys); the fp32 backward's dK/dV (DKV_K
 // keys, DKV_Q queries) and dQ (DQ_Q queries, DQ_K keys). The forward's BK is
 // the key-block width of the plain version in ops/flash_attention.py
 // (block_k(); the CPU tests read it from this text). bf16: 128 keys at
 // D = 64; at D = 128 and 256, 64, where a 128-key ring leaves one block per
 // SM (D = 128) or O takes 128 registers a thread (D = 256). FWD_BLOCKS is the
-// bf16 forward's blocks per SM. The sm90 backward (D = 64 and 128) takes 64
-// keys by SM90_Q queries in dK/dV (32 at D = 128, where a 64-query S^T and
-// dP^T beside dK and dV would spill) and 64 queries by 64 keys in dQ;
-// DKV_BLOCKS and DQ_BLOCKS are their blocks per SM. D = 256 keeps the WMMA
-// kernels.
+// bf16 forward's blocks per SM. The sm90 backward takes 64 keys by SM90_Q
+// queries in dK/dV (32 at D = 128 and 256, where a 64-query S^T and dP^T
+// beside dK and dV would spill) on SM90_WG warpgroups (2 at D = 256: 128 of
+// dK's and dV's columns each), and SM90_QT tiles of 64 queries by SM90_K
+// keys in dQ (at D = 256 two query tiles, a warpgroup each, and 32 keys,
+// beside dQ's 128 accumulator registers); DKV_BLOCKS and DQ_BLOCKS are their
+// blocks per SM.
 template <typename T, int D>
 struct Tiles;
 template <int D>
@@ -534,9 +512,11 @@ struct Tiles<bf16, D> {
   static constexpr int BK = D == 64 ? 128 : 64;
   static constexpr int FWD_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
   static constexpr int SM90_Q = D == 64 ? 64 : 32;
-  static constexpr int DKV_BLOCKS = 2, DQ_BLOCKS = D == 64 ? 3 : 2;
-  static constexpr int DKV_K = 32, DKV_Q = 64;   // D = 256
-  static constexpr int DQ_Q = 64, DQ_K = 32;
+  static constexpr int SM90_WG = D == 256 ? 2 : 1;
+  static constexpr int SM90_K = D == 256 ? 32 : 64;
+  static constexpr int SM90_QT = D == 256 ? 2 : 1;
+  static constexpr int DKV_BLOCKS = D == 256 ? 1 : 2;
+  static constexpr int DQ_BLOCKS = D == 64 ? 3 : D == 128 ? 2 : 1;
 };
 template <int D>
 struct Tiles<float, D> {
@@ -607,18 +587,18 @@ cudaError_t fwd_by_d(int D, const void* q, const void* k, const void* v, void* o
   return launch_fwd<T, 256>(q, k, v, o, lse, BH, N, scale, s);
 }
 
-// The bf16 backward at D = 64 and 128: the prep kernel, then dK/dV and dQ
-// on the sm90 core. scratch holds 2 BH Np fp32 (Di, then lse2).
+// The bf16 backward: the prep kernel, then dK/dV and dQ on the sm90 core.
+// scratch holds 2 BH Np fp32 (Di, then lse2).
 template <int D>
 cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v, const void* o,
                             const void* lse, const void* dout, void* dq, void* dk, void* dv,
                             void* scratch, int BH, int N, float scale, cudaStream_t s) {
   using Tl = Tiles<bf16, D>;
-  constexpr int BQK = Tl::SM90_Q;
-  using LKV = sm90::BwdSmem<D, sm90::BQ, BQK, true>;
-  using LQ = sm90::BwdSmem<D, sm90::BQ, 64, false>;
-  constexpr auto dkv = flash_bwd_dkv_sm90<D, BQK, Tl::DKV_BLOCKS>;
-  constexpr auto dqk = flash_bwd_dq_sm90<D, Tl::DQ_BLOCKS>;
+  constexpr int BQK = Tl::SM90_Q, NWG = Tl::SM90_WG, BKQ = Tl::SM90_K, NQ = Tl::SM90_QT;
+  using LKV = sm90::DkvSmem<D, BQK, NWG>;
+  using LQ = sm90::BwdSmem<D, sm90::BQ * NQ, BKQ, false>;
+  constexpr auto dkv = flash_bwd_dkv_sm90<D, BQK, NWG, Tl::DKV_BLOCKS>;
+  constexpr auto dqk = flash_bwd_dq_sm90<D, BKQ, NQ, Tl::DQ_BLOCKS>;
   cudaError_t e = sm90::configure<dkv>(LKV::BYTES);
   if (e == cudaSuccess) e = sm90::configure<dqk>(LQ::BYTES);
   if (e != cudaSuccess) return e;
@@ -630,19 +610,23 @@ cudaError_t launch_bwd_sm90(const void* q, const void* k, const void* v, const v
       (const bf16*)o, (const bf16*)dout, (const float*)lse, lse2, di, N, Np, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  CUtensorMap tq, tk, tv, tdo, tqs, tdos;   // 64-row boxes; BQK-row boxes of Q and dO
+  // 64-row boxes of the resident tiles; BQK-row boxes of the streamed Q and
+  // dO (dK/dV), BKQ-row boxes of the streamed K and V (dQ)
+  CUtensorMap tq, tk, tv, tdo, tqs, tdos, tks, tvs;
   if (!sm90::make_map<D>(&tq, q, BH, N, D, D, 64) || !sm90::make_map<D>(&tk, k, BH, N, D, D, 64) ||
       !sm90::make_map<D>(&tv, v, BH, N, D, D, 64) ||
       !sm90::make_map<D>(&tdo, dout, BH, N, D, D, 64) ||
       !sm90::make_map<D>(&tqs, q, BH, N, D, D, BQK) ||
-      !sm90::make_map<D>(&tdos, dout, BH, N, D, D, BQK))
+      !sm90::make_map<D>(&tdos, dout, BH, N, D, D, BQK) ||
+      !sm90::make_map<D>(&tks, k, BH, N, D, D, BKQ) ||
+      !sm90::make_map<D>(&tvs, v, BH, N, D, D, BKQ))
     return cudaErrorInvalidValue;
   const sm90::BwdRows a{lse2, di, N, Np, D, scale, scale * sm90::LOG2E};
-  const dim3 grid(BH, (N + 63) / 64);
-  dkv<<<grid, sm90::THREADS, LKV::BYTES, s>>>(tqs, tk, tv, tdos, a, (bf16*)dk, (bf16*)dv);
+  const dim3 grid(BH, (N + 63) / 64), grid_q(BH, (N + 64 * NQ - 1) / (64 * NQ));
+  dkv<<<grid, sm90::THREADS * NWG, LKV::BYTES, s>>>(tqs, tk, tv, tdos, a, (bf16*)dk, (bf16*)dv);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dqk<<<grid, sm90::THREADS, LQ::BYTES, s>>>(tq, tk, tv, tdo, a, (bf16*)dq);
+  dqk<<<grid_q, sm90::THREADS * NQ, LQ::BYTES, s>>>(tq, tks, tvs, tdo, a, (bf16*)dq);
   return cudaGetLastError();
 }
 
@@ -653,7 +637,7 @@ cudaError_t bwd_bf16(int D, const void* q, const void* k, const void* v, const v
     return launch_bwd_sm90<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
   if (D == 128)
     return launch_bwd_sm90<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
-  return launch_bwd<bf16, 256>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
+  return launch_bwd_sm90<256>(q, k, v, o, lse, dout, dq, dk, dv, scratch, BH, N, scale, s);
 }
 
 cudaError_t bwd_f32(int D, const void* q, const void* k, const void* v, const void* o,
@@ -687,7 +671,7 @@ A3R_EXPORT int a3r_flash_fwd(const void* q, const void* k, const void* v, void* 
 }
 
 // dq, dk, dv (BH, N, D) in the inputs' dtype; scratch: 2 BH Np fp32, Np =
-// 64 * ceil(N / 64) (Di and lse2 of the sm90 backward; the WMMA kernels use
+// 64 * ceil(N / 64) (Di and lse2 of the bf16 backward; the fp32 kernels use
 // the first BH N as Di).
 A3R_EXPORT int a3r_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* dq, void* dk,

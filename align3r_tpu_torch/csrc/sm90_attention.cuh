@@ -37,7 +37,7 @@
 //     row max; the second pass forms p against it, sums the unrounded p and
 //     runs P V. S is computed twice: 1.5x the products of one pass.
 //
-// Backward (K9, bf16, D = DP = 64 or 128), from lse2 = lse * log2(e) and
+// Backward (K9, bf16, D = DP = 64, 128 or 256), from lse2 = lse * log2(e) and
 // Di = sum(O * dO) per row (fp32; padded to 64-row tiles with lse2 = +inf,
 // Di = 0, so padded rows give P = dS = 0), in two kernels with no atomics:
 //   - dK/dV: one warpgroup per (head, 64-key tile), the key tile the wgmma
@@ -49,10 +49,19 @@
 //     tile) and packed to bf16 A fragments; dV += P^T dO and dK += dS^T Q take
 //     B N-major (dO, Q). dK and dV stay in registers: four products per query
 //     tile, none through shared memory. BQK = 64 at D = 64, 32 at D = 128
-//     (m64n32: S^T and dP^T beside dK and dV would spill at 64).
+//     and 256 (m64n32: S^T and dP^T beside dK and dV would spill at 64). At
+//     D = 256, dK and dV of 64 keys are 256 fp32 registers a thread for one
+//     warpgroup, so the block has NWG = 2 warpgroups (256 threads), each
+//     owning 128 of the 256 columns of dK and dV (128 accumulator
+//     registers): each reduces S^T and dP^T over its own 128 columns of D
+//     and the two partials are summed through shared memory.
 //   - dQ: one warpgroup per (head, 64-query tile), Q and dO resident, K and V
-//     through the ring: S = Q K^T, dP = dO V^T, dS in registers (the row's
-//     lse2 and Di in registers, keys >= N masked), dQ += dS K with K N-major.
+//     through the ring in tiles of BK keys: S = Q K^T, dP = dO V^T, dS in
+//     registers (the row's lse2 and Di in registers, keys >= N masked),
+//     dQ += dS K with K N-major. At D = 256, BK = 32 (dQ's accumulator is 128
+//     registers) and a block holds NQ = 2 query tiles, a warpgroup each, on
+//     one stream of K and V (128 KB of Q and dO: one block an SM, so the two
+//     warpgroups are what overlaps one's softmax with the other's products).
 // P is rounded to bf16 before dV and dS before dK and dQ, as the stock TPU
 // backward does; two launches give the same bits.
 //
@@ -295,16 +304,18 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap& tq, const CUten
 
 // The backward's shared memory: two resident (R x DP) tiles, a ring of
 // STAGES pairs of streamed (S x DP) tiles and, with VEC, two fp32 row
-// vectors of S entries per stage (the streamed rows' lse2 and Di); then the
-// STAGES full barriers and the resident tiles' barrier.
-template <int DP, int R, int S, bool VEC>
+// vectors of S entries per stage (the streamed rows' lse2 and Di); XB bytes
+// through which warpgroups exchange partial products; then the STAGES full
+// barriers and the resident tiles' barrier.
+template <int DP, int R, int S, bool VEC, int XB = 0>
 struct BwdSmem {
   static constexpr int RB = R * DP * 2;                  // one resident tile
   static constexpr int SB = S * DP * 2;                  // one streamed tile
   static constexpr int S0 = 2 * RB;                      // stage s: S0 + 2 s SB, then + SB
   static constexpr int VB = VEC ? S * 4 : 0;             // one row vector
   static constexpr int V0 = S0 + STAGES * 2 * SB;        // stage s: V0 + 2 s VB, then + VB
-  static constexpr int BAR = V0 + STAGES * 2 * VB;
+  static constexpr int X0 = V0 + STAGES * 2 * VB;
+  static constexpr int BAR = X0 + XB;
   static constexpr int BYTES = BAR + (STAGES + 1) * 8 + 1024;   // + the base's alignment
   static_assert(RB % 1024 == 0 && SB % 1024 == 0, "tiles must keep 1024-byte alignment");
 };
@@ -319,26 +330,42 @@ struct BwdRows {
   float scale, scale_log2;
 };
 
-// dK and dV of one (head, 64-key tile), the key tile the wgmma M: K and V
-// resident, the query tiles (BQK rows of Q and dO, their lse2 and Di) through
-// the ring. Per query tile four products, none through shared memory:
-//   S^T = K Q^T and dP^T = V dO^T, both operands K-major;
+// dK/dV's shared memory: with NWG = 2 warpgroups, each thread's S^T and dP^T
+// partials (BQK fp32) per warpgroup for the exchange
+template <int DP, int BQK, int NWG>
+using DkvSmem = BwdSmem<DP, BQ, BQK, true, NWG == 1 ? 0 : NWG * THREADS * BQK * 4>;
+
+// dK and dV of one (head, 64-key tile), the key tile the wgmma M, on NWG
+// warpgroups, warpgroup g owning columns g DP / NWG .. (g + 1) DP / NWG of dK
+// and dV: K and V resident, the query tiles (BQK rows of Q and dO, their lse2
+// and Di) through the ring. Per query tile four products:
+//   S^T = K Q^T and dP^T = V dO^T, both operands K-major; with NWG = 2 each
+//   warpgroup reduces over its own columns of D and the two partials meet
+//   through shared memory (thread t of either warpgroup holds the same
+//   elements, and a + b == b + a, so both hold the same S^T and dP^T);
 //   P^T = exp2(S^T * scale_log2 - lse2[column]) and
 //   dS^T = P^T (dP^T - Di[column]) * scale in registers (lse2 and Di read
 //   from the staged vectors), each packed to bf16 as A fragments;
-//   dV += P^T dO and dK += dS^T Q with A from registers and B (dO, Q) N-major.
-template <int DP, int BQK>
+//   dV += P^T dO and dK += dS^T Q with A from registers and B (dO, Q) N-major,
+//   on the warpgroup's columns.
+template <int DP, int BQK, int NWG>
 __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const CUtensorMap& tk,
                                                   const CUtensorMap& tv, const CUtensorMap& tdo,
                                                   const BwdRows& a, bf16* __restrict__ dk,
                                                   bf16* __restrict__ dv) {
   using C = Cols<DP>;
-  using L = BwdSmem<DP, BQ, BQK, true>;
+  using L = DkvSmem<DP, BQK, NWG>;
+  constexpr int DW = DP / NWG;   // this warpgroup's columns of dK, dV and of S^T's sum
+  static_assert(DW % C::CB == 0, "a warpgroup's columns are whole column blocks");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   const float* vecs = reinterpret_cast<const float*>(smem_raw + (base - raw) + L::V0);
   const uint32_t sk = base, sv = base + L::RB, bars = base + L::BAR, rbar = bars + 8 * STAGES;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = NWG == 1 ? 0 : tid >> 7;
+  // the warpgroup's first column block of a streamed (BQK x DP) tile
+  const uint32_t wcol = wg * (DW / C::CB) * BQK * C::SW;
+  float4* xch = reinterpret_cast<float4*>(smem_raw + (base - raw) + L::X0);
   int bh, kt;
   head_tile(bh, kt);
   const int k0 = kt * BQ, n_tiles = (a.N + BQK - 1) / BQK;
@@ -370,14 +397,19 @@ __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const C
     }
     for (int i = 0; i < STAGES && i < n_tiles; ++i) fill(i);
   }
+  // the staged lse2 and Di were read by ordinary loads: fenced before the
+  // copy engine refills the stage
   auto release = [&](int i) {
     __syncthreads();
-    if (tid == 0 && i + STAGES < n_tiles) fill(i + STAGES);
+    if (tid == 0 && i + STAGES < n_tiles) {
+      fence_proxy_async();
+      fill(i + STAGES);
+    }
   };
 
-  float dka[DP / 2], dva[DP / 2];
+  float dka[DW / 2], dva[DW / 2];
 #pragma unroll
-  for (int e = 0; e < DP / 2; ++e) dka[e] = dva[e] = 0.f;
+  for (int e = 0; e < DW / 2; ++e) dka[e] = dva[e] = 0.f;
   const int c = 2 * (lane & 3);   // the thread's first column in each 8-column group
   mbar_wait(rbar, 0);
 
@@ -388,17 +420,38 @@ __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const C
     mbar_wait(bars + 8 * s, (i / STAGES) & 1);
 
     float st[BQK / 2], dpt[BQK / 2];   // S^T, dP^T (unscaled): keys x queries
+    constexpr int KS = DW / 16;        // k16 slices of this warpgroup's columns
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<BQK>::ss(st, desc_k<DP, BQ>(sk, kk), desc_k<DP, BQK>(sq, kk), kk);
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BQK>::ss(st, desc_k<DP, BQ>(sk, wg * KS + kk), desc_k<DP, BQK>(sq, wg * KS + kk), kk);
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<BQK>::ss(dpt, desc_k<DP, BQ>(sv, kk), desc_k<DP, BQK>(sdo, kk), kk);
+    for (int kk = 0; kk < KS; ++kk)
+      Wgmma<BQK>::ss(dpt, desc_k<DP, BQ>(sv, wg * KS + kk), desc_k<DP, BQK>(sdo, wg * KS + kk),
+                     kk);
     wgmma_commit();
     wgmma_wait_all();
     pin(st);
     pin(dpt);
+    if constexpr (NWG == 2) {   // S^T and dP^T: this warpgroup's partial + the other's
+      constexpr int F4 = BQK / 8;   // float4s of st (and of dpt) a thread
+      const int t = tid & (THREADS - 1);
+#pragma unroll
+      for (int j = 0; j < F4; ++j) {
+        xch[(wg * 2 * F4 + j) * THREADS + t] =
+            make_float4(st[4 * j], st[4 * j + 1], st[4 * j + 2], st[4 * j + 3]);
+        xch[(wg * 2 * F4 + F4 + j) * THREADS + t] =
+            make_float4(dpt[4 * j], dpt[4 * j + 1], dpt[4 * j + 2], dpt[4 * j + 3]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < F4; ++j) {
+        const float4 x = xch[((1 - wg) * 2 * F4 + j) * THREADS + t];
+        const float4 y = xch[((1 - wg) * 2 * F4 + F4 + j) * THREADS + t];
+        st[4 * j] += x.x, st[4 * j + 1] += x.y, st[4 * j + 2] += x.z, st[4 * j + 3] += x.w;
+        dpt[4 * j] += y.x, dpt[4 * j + 1] += y.y, dpt[4 * j + 2] += y.z, dpt[4 * j + 3] += y.w;
+      }
+    }
 
     // P^T and dS^T in fp32, rounded to bf16 pairs as the A fragments of the
     // next products' k16 slices (slice ks holds queries 16 ks .. 16 ks + 15)
@@ -416,9 +469,11 @@ __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const C
     }
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < BQK / 16; ++ks) Wgmma<DP>::rs(dva, pa[ks], desc_mn<DP, BQK>(sdo, ks));
+    for (int ks = 0; ks < BQK / 16; ++ks)
+      Wgmma<DW>::rs(dva, pa[ks], desc_mn<DP, BQK>(sdo + wcol, ks));
 #pragma unroll
-    for (int ks = 0; ks < BQK / 16; ++ks) Wgmma<DP>::rs(dka, da[ks], desc_mn<DP, BQK>(sq, ks));
+    for (int ks = 0; ks < BQK / 16; ++ks)
+      Wgmma<DW>::rs(dka, da[ks], desc_mn<DP, BQK>(sq + wcol, ks));
     wgmma_commit();
     wgmma_wait_all();
     pin(dva);
@@ -431,10 +486,10 @@ __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const C
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= a.N) continue;
-    const size_t off = ((size_t)bh * a.N + row) * a.D + c;
+    const size_t off = ((size_t)bh * a.N + row) * a.D + wg * DW + c;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j)
-      if (8 * j < a.D) {
+    for (int j = 0; j < DW / 8; ++j)
+      if (wg * DW + 8 * j < a.D) {
         *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
             __floats2bfloat162_rn(dka[4 * j + 2 * h], dka[4 * j + 2 * h + 1]);
         *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
@@ -443,25 +498,29 @@ __device__ __forceinline__ void attention_bwd_dkv(const CUtensorMap& tq, const C
   }
 }
 
-// dQ of one (head, 64-query tile): Q and dO resident, the key tiles (64 rows
-// of K and V) through the ring, as the forward's loop. Per key tile three
-// products: S = Q K^T and dP = dO V^T (K-major), dS = P (dP - Di) * scale in
-// registers (the row's lse2 and Di held in registers; keys >= N masked), and
+// dQ of NQ (head, 64-query tile)s, one warpgroup each, on one stream of key
+// tiles: Q and dO resident (NQ 64-row tiles), the key tiles (BK rows of K and
+// V) through the ring, as the forward's loop. Per key tile three products:
+// S = Q K^T and dP = dO V^T (K-major), dS = P (dP - Di) * scale in registers
+// (the row's lse2 and Di held in registers; keys >= N masked), and
 // dQ += dS K with A from registers and K N-major.
-template <int DP>
+template <int DP, int BK, int NQ>
 __device__ __forceinline__ void attention_bwd_dq(const CUtensorMap& tq, const CUtensorMap& tk,
                                                  const CUtensorMap& tv, const CUtensorMap& tdo,
                                                  const BwdRows& a, bf16* __restrict__ dq) {
-  constexpr int BK = 64;
+  constexpr int R = BQ * NQ;   // resident rows
   using C = Cols<DP>;
-  using L = BwdSmem<DP, BQ, BK, false>;
+  using L = BwdSmem<DP, R, BK, false>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sq = base, sdo = base + L::RB, bars = base + L::BAR, rbar = bars + 8 * STAGES;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int wg = NQ == 1 ? 0 : tid >> 7;
+  // this warpgroup's 64 rows of the resident Q and dO
+  const uint32_t sq = base + wg * BQ * C::SW, sdo = sq + L::RB;
+  const uint32_t bars = base + L::BAR, rbar = bars + 8 * STAGES;
   int bh, qt;
   head_tile(bh, qt);
-  const int q0 = qt * BQ, n_tiles = (a.N + BK - 1) / BK;
+  const int q0 = qt * R + wg * BQ, n_tiles = (a.N + BK - 1) / BK;
 
   auto fill = [&](int i) {
     const int s = i % STAGES, k0 = i * BK;
@@ -481,10 +540,13 @@ __device__ __forceinline__ void attention_bwd_dq(const CUtensorMap& tq, const CU
   if (tid == 0) {
     mbar_expect_tx(rbar, 2 * L::RB);
 #pragma unroll
-    for (int b = 0; b < C::NCB; ++b) {
-      tma_load(sq + b * BQ * C::SW, &tq, rbar, b * C::CB, q0, bh);
-      tma_load(sdo + b * BQ * C::SW, &tdo, rbar, b * C::CB, q0, bh);
-    }
+    for (int w = 0; w < NQ; ++w)
+#pragma unroll
+      for (int b = 0; b < C::NCB; ++b) {
+        const uint32_t at = base + b * R * C::SW + w * BQ * C::SW;
+        tma_load(at, &tq, rbar, b * C::CB, qt * R + w * BQ, bh);
+        tma_load(at + L::RB, &tdo, rbar, b * C::CB, qt * R + w * BQ, bh);
+      }
     for (int i = 0; i < STAGES && i < n_tiles; ++i) fill(i);
   }
   auto release = [&](int i) {
@@ -496,11 +558,14 @@ __device__ __forceinline__ void attention_bwd_dq(const CUtensorMap& tq, const CU
 #pragma unroll
   for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
   const int r0 = q0 + warp * 16 + (lane >> 2), c = 2 * (lane & 3);
-  float lr[2], dr[2];   // rows r0 and r0 + 8 (< Np: the padded rows' P is 0)
+  // rows r0 and r0 + 8: the padded rows (< Np) have P = 0, and so do the rows
+  // of a warpgroup's tile past Np (NQ > 1)
+  float lr[2], dr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    lr[h] = a.lse2[(size_t)bh * a.Np + r0 + 8 * h];
-    dr[h] = a.di[(size_t)bh * a.Np + r0 + 8 * h];
+    const bool in = NQ == 1 || r0 + 8 * h < a.Np;
+    lr[h] = in ? a.lse2[(size_t)bh * a.Np + r0 + 8 * h] : INFINITY;
+    dr[h] = in ? a.di[(size_t)bh * a.Np + r0 + 8 * h] : 0.f;
   }
   mbar_wait(rbar, 0);
 
@@ -513,10 +578,10 @@ __device__ __forceinline__ void attention_bwd_dq(const CUtensorMap& tq, const CU
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<BK>::ss(sc, desc_k<DP, BQ>(sq, kk), desc_k<DP, BK>(sk, kk), kk);
+      Wgmma<BK>::ss(sc, desc_k<DP, R>(sq, kk), desc_k<DP, BK>(sk, kk), kk);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      Wgmma<BK>::ss(dp, desc_k<DP, BQ>(sdo, kk), desc_k<DP, BK>(sv, kk), kk);
+      Wgmma<BK>::ss(dp, desc_k<DP, R>(sdo, kk), desc_k<DP, BK>(sv, kk), kk);
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);

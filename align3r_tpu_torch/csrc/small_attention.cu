@@ -16,8 +16,9 @@
 // and o, about 5.5 us at either peak (989 TFLOP/s bf16, 3.35 TB/s), so
 // operations and bytes bound it about equally; the exact max costs a third
 // product (q k^T again) and the 21 M exponentials take about as long as the
-// products on the SMs' exp units. The (Nq, Nk) logits never reach device
-// memory.
+// products on the SMs' exp units. In fp32 the same products at fp32 accuracy
+// are 16.3 GFLOP of TF32 (3xTF32: 33 us at 494.7 TFLOP/s). The (Nq, Nk)
+// logits never reach device memory.
 //
 // Design:
 //   bf16: the warpgroup-MMA core of sm90_attention.cuh (EXACT policy): one
@@ -33,16 +34,20 @@
 //     blocks for the encoder's 64 heads, 432 for the decoder's 48. At D = 64
 //     a block takes 42 KB of shared memory and, at 90 registers a thread,
 //     5 fit an SM: 660 at once on 132 SMs, so either grid is one wave.
-//   fp32: two passes with scalar FMA (the TPU kernel's fp32 path is off the
-//     training recipe's bf16 main path), one block per (head, 32-query
-//     tile), four threads per query row.
+//   fp32: the fp32 operand policy of the same core
+//     (sm90_attention_tf32.cuh): every product as three TF32 wgmma products
+//     of split operands (3xTF32, about 2^-21 relative), one online-softmax
+//     pass (in fp32 the rounding of P is the identity, so the exact-max pass
+//     is not needed), a pre-pass that splits K and writes V^T split, 32-key
+//     stages, 2 blocks per SM at D <= 64. The TPU kernel's fp32 path is off
+//     the training recipe's bf16 main path.
 #include "common.cuh"
 #include "sm90_attention.cuh"
+#include "sm90_attention_tf32.cuh"
 
 namespace a3r {
 
-constexpr int SK = 64;         // keys per tile
-constexpr int STHREADS = 128;
+constexpr int SK = 64;   // keys per bf16 tile
 
 // the EXACT policy of sm90_attention.cuh, at padded head dim DP
 template <int DP, int MINB>
@@ -57,92 +62,34 @@ small_attention_sm90(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------------------------------- fp32
 
-constexpr int FQ = 32;   // query rows per block, four threads each
-constexpr int FMAXD = 128;
-
-__host__ __device__ constexpr int f32_smem_bytes(int D) {
-  return (FQ * (D + 1) + SK * (D + 1) + SK * D + FQ * (SK + 1)) * 4;
+__global__ void __launch_bounds__(256)
+small_attention_tf32_split(const float* __restrict__ k, const float* __restrict__ v,
+                           float* __restrict__ kh, float* __restrict__ kl,
+                           float* __restrict__ vth, float* __restrict__ vtl, int Nk, int Nkp,
+                           int D) {
+  sm90::tf32_split_kv(k, v, kh, kl, vth, vtl, Nk, Nkp, D);
 }
 
-__global__ void __launch_bounds__(STHREADS)
-small_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int Nq,
-                    int Nk, int D, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  const int LQ = D + 1;
-  float* Qs = fsm;                    // FQ x (D + 1)
-  float* Ks = Qs + FQ * LQ;           // SK x (D + 1)
-  float* Vs = Ks + SK * LQ;           // SK x D
-  float* Ps = Vs + SK * D;            // FQ x (SK + 1)
-  const int tid = threadIdx.x, r = tid >> 2, g = tid & 3;
-  const int bh = blockIdx.x, q0 = blockIdx.y * FQ;
-  const float* qb = q + (size_t)bh * Nq * D;
-  const float* kb = k + (size_t)bh * Nk * D;
-  const float* vb = v + (size_t)bh * Nk * D;
+// the fp32 operand policy (3xTF32) at padded head dim DP; MINB blocks per SM
+template <int DP, int MINB>
+__global__ void __launch_bounds__(sm90::THREADS, MINB)
+small_attention_tf32(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tkh,
+                     const __grid_constant__ CUtensorMap tkl,
+                     const __grid_constant__ CUtensorMap tvh,
+                     const __grid_constant__ CUtensorMap tvl, float* __restrict__ o, int Nq,
+                     int Nk, int D, float scale_log2) {
+  sm90::attention_fwd_tf32<DP>(tq, tkh, tkl, tvh, tvl, o, Nq, Nk, D, scale_log2);
+}
 
-  for (int i = tid; i < FQ * D; i += STHREADS) {
-    const int rr = i / D, cc = i - rr * D;
-    Qs[rr * LQ + cc] = q0 + rr < Nq ? qb[(size_t)(q0 + rr) * D + cc] : 0.f;
-  }
-  auto load_kv = [&](int k0, bool with_v) {
-    for (int i = tid; i < SK * D; i += STHREADS) {
-      const int rr = i / D, cc = i - rr * D;
-      const bool ok = k0 + rr < Nk;
-      Ks[rr * LQ + cc] = ok ? kb[(size_t)(k0 + rr) * D + cc] : 0.f;
-      if (with_v) Vs[rr * D + cc] = ok ? vb[(size_t)(k0 + rr) * D + cc] : 0.f;
-    }
-    __syncthreads();
-  };
-  // logit of this thread's row against key j of the resident tile
-  auto logit = [&](int j) {
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(Qs[r * LQ + d], Ks[j * LQ + d], s);
-    return s * scale;
-  };
-  const int n_tiles = (Nk + SK - 1) / SK;
-
-  float mrow = -INFINITY;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * SK, false);
-    for (int j = g; j < SK && t * SK + j < Nk; j += 4) mrow = fmaxf(mrow, logit(j));
-    __syncthreads();
-  }
-  mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, 1));
-  mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, 2));
-
-  float acc[FMAXD / 4];
-#pragma unroll
-  for (int i = 0; i < FMAXD / 4; ++i) acc[i] = 0.f;
-  float lrow = 0.f;
-  for (int t = 0; t < n_tiles; ++t) {
-    load_kv(t * SK, true);
-    for (int j = g; j < SK; j += 4) {
-      const float p = t * SK + j < Nk ? expf(logit(j) - mrow) : 0.f;
-      lrow += p;
-      Ps[r * (SK + 1) + j] = p;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < FMAXD / 4; ++i) {
-      const int c = g + 4 * i;
-      if (c < D) {
-        float a = acc[i];
-        for (int j = 0; j < SK; ++j) a = fmaf(Ps[r * (SK + 1) + j], Vs[j * D + c], a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-  lrow += __shfl_xor_sync(0xffffffffu, lrow, 1);
-  lrow += __shfl_xor_sync(0xffffffffu, lrow, 2);
-  if (q0 + r < Nq) {
-    float* orow = o + (size_t)bh * Nq * D + (size_t)(q0 + r) * D;
-#pragma unroll
-    for (int i = 0; i < FMAXD / 4; ++i) {
-      const int c = g + 4 * i;
-      if (c < D) orow[c] = acc[i] / lrow;
-    }
-  }
+// blocks per SM: 4 at DP = 32 (49 KB of shared memory each), 2 at 64 (97 KB),
+// 1 at 128 (193 KB)
+template <int DP>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* scratch,
+                       int BH, int Nq, int Nk, int D, float scale, cudaStream_t s) {
+  constexpr int MINB = DP == 32 ? 4 : DP == 64 ? 2 : 1;
+  return sm90::launch_f32<DP, small_attention_tf32_split, small_attention_tf32<DP, MINB>>(
+      q, k, v, o, scratch, BH, Nq, Nk, D, scale, s);
 }
 
 // blocks per SM: 4 up to DP = 64 (40 KB of tiles each), 2 at DP = 128
@@ -157,8 +104,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 
 using namespace a3r;
 
+// q (BH, Nq, D), k and v (BH, Nk, D), o like q, in one dtype (bf16 or fp32),
+// contiguous and 16-byte aligned. fp32 takes scratch of 2 BH D (Nk + Nkp)
+// floats, Nkp = 8 ceil(Nk / 8) (K and V^T split to TF32 hi and lo); bf16
+// none.
+
 A3R_EXPORT int a3r_small_attention(const void* q, const void* k, const void* v,
-                                   void* o, int BH, int Nq, int Nk, int D,
+                                   void* o, void* scratch, int BH, int Nq, int Nk, int D,
                                    int is_bf16, float scale, void* stream) {
   if (D <= 0 || D > 128 || D % 8 || Nq <= 0 || Nk <= 0 || BH <= 0 ||
       (Nq + sm90::BQ - 1) / sm90::BQ > 65535)
@@ -170,16 +122,8 @@ A3R_EXPORT int a3r_small_attention(const void* q, const void* k, const void* v,
     if (D <= 64) return (int)launch_bf16<64>(q, k, v, o, BH, Nq, Nk, D, scale, s);
     return (int)launch_bf16<128>(q, k, v, o, BH, Nq, Nk, D, scale, s);
   }
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(small_attention_f32,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         f32_smem_bytes(FMAXD));
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid(BH, (Nq + FQ - 1) / FQ);
-  small_attention_f32<<<grid, STHREADS, f32_smem_bytes(D), s>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Nq, Nk, D, scale);
-  return (int)cudaGetLastError();
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (D <= 32) return (int)launch_f32<32>(q, k, v, o, scratch, BH, Nq, Nk, D, scale, s);
+  if (D <= 64) return (int)launch_f32<64>(q, k, v, o, scratch, BH, Nq, Nk, D, scale, s);
+  return (int)launch_f32<128>(q, k, v, o, scratch, BH, Nq, Nk, D, scale, s);
 }

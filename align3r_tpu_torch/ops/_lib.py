@@ -37,7 +37,7 @@ _SIGNATURES = {
     "a3r_layernorm": [_P, _P, _P, _P, _LL, _LL, _I, _F, _P],
     "a3r_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "a3r_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "a3r_small_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "a3r_small_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "a3r_edge_fwd": [_P] * 10 + [_I] * 4 + [_P],
     "a3r_edge_bwd": [_P] * 10 + [_I] * 5 + [_P],
     "a3r_permute_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],

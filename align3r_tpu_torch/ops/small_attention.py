@@ -7,7 +7,10 @@ logits q k^T scaled by D^-1/2, the exact row max over all keys,
 p = exp(logits - max) in fp32, s = the sum of the unrounded p, P rounded to
 v's dtype before P V (fp32 accumulation), and (P V) / s in q's dtype. The
 CUDA implementation is csrc/small_attention.cu; what bounds it and what its
-design does about that is written at the top of that file.
+design does about that is written at the top of that file. In fp32 it runs
+on the tensor cores as 3xTF32 split products with one online-softmax pass
+(csrc/sm90_attention_tf32.cuh); ``small_attention_f32_tiles_plain`` is that
+walk in PyTorch, for the CPU tests.
 
 The backward is autograd of a plain twin of ``_xla_equiv`` (:149-160), by
 recompute, as the JAX custom VJP does (``_small_bwd``, :167-170): the twin
@@ -51,6 +54,51 @@ def small_attention_plain(q, k, v):
     return (out / s).to(q.dtype)
 
 
+# the fp32 kernel's keys per stage (csrc/sm90_attention_tf32.cuh, F32_BK)
+F32_BK = 32
+
+
+def tf32_round(x):
+    """fp32 x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, 10 mantissa bits (the 13 low bits cleared). Finite inputs."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def small_attention_f32_tiles_plain(q, k, v, split: bool = True):
+    """The fp32 kernel's walk in PyTorch: key tiles of F32_BK, one
+    online-softmax pass (running max and sum of the unrounded p, O and the
+    sum rescaled by exp2(m_old - m_new), log2 units), and every product as
+    3xTF32: operands split as hi = tf32(x), lo = tf32(x - hi), the product
+    lo hi + hi lo + hi hi in fp32. split=False runs single-pass TF32 (hi hi
+    alone), the function the split exists to avoid. fp32 in, fp32 out."""
+    def parts(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    def mm(a, b):   # a (.., M, K) @ b (.., K, N) at the kernel's accuracy
+        (ah, al), (bh, bl) = parts(a), parts(b)
+        if not split:
+            return ah @ bh
+        return al @ bh + ah @ bl + ah @ bh
+
+    D, Nk = q.shape[-1], k.shape[-2]
+    scale_log2 = D ** -0.5 * 1.4426950408889634
+    q, k, v = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, Nk, F32_BK):
+        s = mm(q, k[..., k0:k0 + F32_BK, :].transpose(-1, -2))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, v[..., k0:k0 + F32_BK, :])
+        m = m_new
+    return acc / l
+
+
 def small_attention_twin(q, k, v):
     """The computation whose autograd is K6's backward (the JAX _xla_equiv):
     p / s normalised before the rounding to v's dtype; the row max is a
@@ -81,9 +129,14 @@ def _cuda(q, k, v):
 
     q, k, v = _lib.dense(q), _lib.dense(k), _lib.dense(v)
     o = torch.empty_like(q)
+    bf16 = q.dtype == torch.bfloat16
+    # fp32: K's TF32 hi and lo, and V^T's over Nk rounded up to 8 keys
+    scratch = None if bf16 else torch.empty(
+        2 * B * H * D * (Nk + -(-Nk // 8) * 8), device=q.device, dtype=torch.float32)
     _lib.check(_lib.library().a3r_small_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H, Nq, Nk,
-        D, int(q.dtype == torch.bfloat16), D ** -0.5, _lib.stream()), "K6")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if bf16 else scratch.data_ptr(), B * H, Nq, Nk, D, int(bf16), D ** -0.5,
+        _lib.stream()), "K6")
     small_attention.launches += 1
     return o
 

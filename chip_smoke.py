@@ -12,7 +12,10 @@ final result line:
                 kernels must spill nothing. Every
                 instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
                 bf16 conv_sm90, 4 each) must spill nothing and its SASS
-                (cuobjdump -sass) must hold HGMMA instructions.
+                (cuobjdump -sass) must hold HGMMA instructions; so must K9's
+                bf16 D = 256 backward (dK/dV and dQ) and K6's fp32 forward
+                (3 instances); no bf16 instance of the old WMMA backward may
+                be in the library.
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events; K1
@@ -113,6 +116,9 @@ TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
+# dense TF32 tensor cores; an fp32-accurate product there is 3 TF32 products
+# (3xTF32), so fp32 attention's bound is max(bytes, 3 ops / PEAK_TF32)
+PEAK_TF32 = 494.7e12
 
 
 def fail(phase: str, msg: str) -> int:
@@ -155,11 +161,18 @@ def ptxas_usage(log: str) -> dict:
 # the instances of the Hopper GEMM core (gemm.cuh), by kernel name: K1/K2's
 # GEMM (4 epilogues) and K7/K8's bf16 3x3 conv (4 epilogues)
 CORE_INSTANCES = {"gemm_sm90": 4, "conv_sm90": 4}
+# the attention kernels this build must hold on the warpgroup-MMA core, by a
+# regular expression on the mangled name: K9's bf16 backward at D = 256
+# (dK/dV and dQ) and K6's fp32 forward (3xTF32, at DP = 32, 64, 128)
+ATTN_INSTANCES = {r"flash_bwd_dkv_sm90ILi256E": 1, r"flash_bwd_dq_sm90ILi256E": 1,
+                  r"small_attention_tf32I": 3}
+# the old WMMA backward kernels in bf16, which must not be in the library
+WMMA_BF16 = r"flash_bwd_(dkv|dq)I(?!f)"
 
 
-def hgmma_counts(lib_path) -> dict:
-    """{GEMM-core kernel (mangled name): HGMMA instructions in its SASS},
-    from cuobjdump -sass on the built library."""
+def hgmma_counts(lib_path, patterns) -> dict:
+    """{kernel (mangled name) matching one of `patterns`: HGMMA instructions
+    in its SASS}, from cuobjdump -sass on the built library."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
@@ -167,7 +180,7 @@ def hgmma_counts(lib_path) -> dict:
     out = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
-        if any(k in name for k in CORE_INSTANCES):
+        if any(re.search(p, name) for p in patterns):
             out[name] = fn.count("HGMMA")
     return out
 
@@ -668,8 +681,9 @@ def check_k9(dev, gen):
     """K9's forward and backward against their plain versions at the 512x512
     training shapes (the encoder's 4 images x 16 heads, the decoder's and
     prior branch's 4 x 12 heads, 1024 tokens, D = 64, bf16), a ragged length
-    (1000), fp32, D = 128 and D = 256 (whose backward keeps the WMMA
-    kernels). The backward is held on the same (o, lse, dO).
+    (1000), fp32, D = 128 and D = 256 (whose backward runs two warpgroups per
+    dK/dV block and 32-key dQ tiles). The backward is held on the same
+    (o, lse, dO).
     Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max) in bf16: both round P
     against the same running max over the same key blocks, block_k (and P,
     dS to bf16 in the backward), summed in another order; 1e-4 x max in fp32.
@@ -681,7 +695,9 @@ def check_k9(dev, gen):
     backward cannot be captured in a graph); K9's also from a CUDA graph
     (`ms_graph`) and one by one (`ms_eager`, SDPA's `library_ms_eager`).
     Both backwards run 7 products where the bound counts 5 (S and dP are
-    recomputed in both of K9's kernels)."""
+    recomputed in both of K9's kernels). fp32 bounds count each product as
+    3 TF32 products at PEAK_TF32 (the least time of an fp32-accurate route
+    on this card's tensor cores)."""
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import flash_attention as fa
@@ -707,13 +723,14 @@ def check_k9(dev, gen):
         so = F.scaled_dot_product_attention(qs, ks, vs)
         B_, H_, N_, D_ = shape
         isz = q.element_size()
-        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+        # fp32: an fp32-accurate product on the tensor cores is 3 TF32 ones
+        peak, mult = (PEAK_BF16, 1) if isz == 2 else (PEAK_TF32, 3)
         heads = B_ * H_
         fb_ms, fb_by = bound(4 * heads * N_ * D_ * isz + heads * N_ * 4,
-                             4 * heads * N_ * N_ * D_, peak)
+                             mult * 4 * heads * N_ * N_ * D_, peak)
         # the backward's five products: S, dP, dV, dK, dQ
         bb_ms, bb_by = bound(8 * heads * N_ * D_ * isz + heads * N_ * 4,
-                             10 * heads * N_ * N_ * D_, peak)
+                             mult * 10 * heads * N_ * N_ * D_, peak)
         tag = f"{name} {tuple(shape)} {'bf16' if isz == 2 else 'fp32'}"
         kern = lambda: fa.flash_attention_fwd(q, k, v)
         lib = lambda: F.scaled_dot_product_attention(q, k, v)
@@ -1045,9 +1062,11 @@ def check_k6(dev, gen):
     heads), bf16, and at the encoder's shape in fp32; beside each, torch's
     scaled_dot_product_attention on the same inputs (the library call the
     port never makes). Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max)
-    in bf16 as for K1; 1e-4 x max in fp32 (fp32 arithmetic on both sides,
+    in bf16 as for K1; 1e-4 x max in fp32 (3xTF32 products, about 2^-21
+    relative, and an online softmax against the plain version's exact max,
     sums over 576 keys in another order). Kernel and library call are timed
-    from a CUDA graph (device time; `_eager`: launched one by one)."""
+    from a CUDA graph (device time; `_eager`: launched one by one). The fp32
+    bound counts each product as 3 TF32 products at PEAK_TF32."""
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import small_attention as sa
@@ -1067,8 +1086,9 @@ def check_k6(dev, gen):
         tol = (1.6e-2 if dt == torch.bfloat16 else 1e-4) * scale
         B_, H_, N_, D_ = shape
         isz = out.element_size()
-        b_ms, b_by = bound(4 * B_ * H_ * N_ * D_ * isz, 4 * B_ * H_ * N_ * N_ * D_,
-                           PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32)
+        ops = 4 * B_ * H_ * N_ * N_ * D_   # fp32: as 3xTF32
+        b_ms, b_by = bound(4 * B_ * H_ * N_ * D_ * isz, ops if isz == 2 else 3 * ops,
+                           PEAK_BF16 if isz == 2 else PEAK_TF32)
         rows.append(ratios(dict(
             kernel="K6", shape=f"{name} {tuple(shape)} "
             f"{'bf16' if dt == torch.bfloat16 else 'fp32'}",
@@ -1439,9 +1459,13 @@ def main() -> int:
         print("build: ptxas registers and spill bytes " + json.dumps(usage), flush=True)
         print("build: kernels that spill " + json.dumps(
             [k for k, (_, st, ld) in usage.items() if st or ld]), flush=True)
-        core_sass = hgmma_counts(path)
+        sass = hgmma_counts(path, [*CORE_INSTANCES, *ATTN_INSTANCES])
+        core_sass = {k: n for k, n in sass.items() if any(c in k for c in CORE_INSTANCES)}
+        attn_sass = {k: n for k, n in sass.items() if k not in core_sass}
         print("build: HGMMA instructions per GEMM-core instance " + json.dumps(core_sass),
               flush=True)
+        print("build: HGMMA instructions per K9 D=256 backward and K6 fp32 kernel "
+              + json.dumps(attn_sass), flush=True)
         core = {k: v for k, v in usage.items() if any(n in k for n in CORE_INSTANCES)}
         counts = {n: sum(n in k for k in core) for n in CORE_INSTANCES}
         bad = [k for k, (_, st, ld) in core.items() if st or ld]
@@ -1455,6 +1479,15 @@ def main() -> int:
             return fail(phase, f"GEMM-core instances {counts} ({CORE_INSTANCES} expected); "
                                f"spilling: {bad}; not on the sm90 core: {stray}; without "
                                f"HGMMA: {[k for k, n in core_sass.items() if not n]}")
+        attn = {k: v for k, v in usage.items() if any(re.search(p, k) for p in ATTN_INSTANCES)}
+        attn_counts = {p: sum(bool(re.search(p, k)) for k in attn) for p in ATTN_INSTANCES}
+        attn_bad = [k for k, (_, st, ld) in attn.items() if st or ld]
+        wmma = [k for k in usage if re.search(WMMA_BF16, k)]
+        if (attn_counts != ATTN_INSTANCES or attn_bad or wmma
+                or sorted(attn_sass) != sorted(attn) or not all(attn_sass.values())):
+            return fail(phase, f"attention instances {attn_counts} ({ATTN_INSTANCES} "
+                               f"expected); spilling: {attn_bad}; bf16 WMMA backward: {wmma}; "
+                               f"without HGMMA: {[k for k, n in attn_sass.items() if not n]}")
 
         phase = "kernels"
         gen = torch.Generator(device=dev).manual_seed(0)

@@ -16,9 +16,10 @@ counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
 padded with zeros (8, 40, 128), one key (the P V product alone) and one key
 tile against V = I (the first product alone); for K9, sequence lengths that
 are not a multiple of its 128-, 64- or 32-row tiles at every head dim it
-takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards and
-K9's bf16 backward, two launches that give the same bits; for that backward
-(D = 64 and 128), a single live query row (dV = P^T dO shows P^T) and Q or
+takes, 2 x 128 + 1, head counts of 5 and 3; for both bf16 forwards, K6's
+fp32 forward and K9's bf16 backward, two launches that give the same bits
+(K6 fp32 also 8 at the training shape); for that backward
+(D = 64, 128 and 256), a single live query row (dV = P^T dO shows P^T) and Q or
 K = 0 (uniform P: the transposed operands alone); for K1's attention
 launch, K6's bits on the same heads laid out per head; for K1/K2's GEMM
 launch (gemm.cuh), every epilogue at 135 rows over G = 2 and at the main
@@ -468,21 +469,33 @@ def test_small_attention_single_tile_scores(dev, D):
     _bf16_close(out, sa.small_attention_plain(q, k, v))
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K9"])
+@pytest.mark.parametrize("kernel", ["K6", "K9", "K6 fp32"])
 def test_attention_forwards_are_deterministic(dev, kernel):
     """Two launches on the same inputs give the same bits (no atomics, no
     split over keys)."""
     g = torch.Generator(device=dev).manual_seed(8)
-    shape = (2, 5, 576, 64) if kernel == "K6" else (2, 5, 1000, 64)
-    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
-               for _ in range(3))
-    if kernel == "K6":
+    shape = (2, 5, 1000, 64) if kernel == "K9" else (2, 5, 576, 64)
+    dtype = torch.float32 if kernel == "K6 fp32" else torch.bfloat16
+    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(3))
+    if kernel != "K9":
         a, b = sa.small_attention(q, k, v), sa.small_attention(q, k, v)
     else:
         (a, la), (b, lb) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_fwd(q, k, v)
         assert torch.equal(la, lb)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def test_small_attention_f32_same_bits_at_the_training_shape(dev):
+    """K6's fp32 kernel (the split pre-pass, then the TMA ring of split K and
+    V^T refilled behind fence.proxy.async) launched 8 times at the encoder's
+    training shape gives the same bits each time."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = (torch.randn(4, 16, 576, 64, generator=g, device=dev) for _ in range(3))
+    outs = [sa.small_attention(q, k, v) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _close(outs[0], sa.small_attention_plain(q, k, v), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -652,12 +665,13 @@ def test_flash_attention_kernels(dev, dtype, shape):
         before[0] + 2, before[1] + 2)
 
 
-# (B, H, N, D): ragged lengths at both head dims of the sm90 backward, with
+# (B, H, N, D): ragged lengths at every head dim of the sm90 backward, with
 # 16 query tiles (N = 1000) or one ragged tile (N = 77) per key tile
 @pytest.mark.parametrize("shape", [(1, 3, 1000, 64), (2, 2, 77, 64), (1, 3, 1000, 128),
-                                   (2, 2, 77, 128)])
+                                   (2, 2, 77, 128), (1, 3, 1000, 256), (2, 2, 77, 256)])
 def test_flash_attention_bwd_sm90(dev, shape):
-    """K9's bf16 backward on the warpgroup-MMA core (D = 64 and 128) against
+    """K9's bf16 backward on the warpgroup-MMA core (D = 64, 128 and 256: two
+    warpgroups per dK/dV block, 32-key dQ tiles) against
     flash_attention_bwd_plain on the plain forward's (o, lse)."""
     g = torch.Generator(device=dev).manual_seed(13)
     q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
@@ -672,7 +686,7 @@ def test_flash_attention_bwd_sm90(dev, shape):
         _close(a, r, torch.bfloat16)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_single_query_row(dev, D):
     """dO is zero but for query row 37: dV = P^T dO is P's row 37 (one query
     column of P^T per key) times dO's row, so each key's P^T entry is held
@@ -692,7 +706,7 @@ def test_flash_attention_bwd_single_query_row(dev, D):
 
 
 @pytest.mark.parametrize("zero", ["q", "k"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_uniform_p(dev, zero, D):
     """Q = 0 or K = 0 makes S = 0 and P uniform (1/N), so the products that
     take a transposed operand stand alone: dV = P^T dO, and dQ = dS K (K = 0:
@@ -719,7 +733,7 @@ def test_flash_attention_bwd_uniform_p(dev, zero, D):
         assert torch.equal(dq, torch.zeros_like(dq))
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_bwd_is_deterministic(dev, D):
     """Two launches of the bf16 backward give the same bits (two kernels, no
     atomics)."""
