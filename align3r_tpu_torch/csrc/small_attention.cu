@@ -67,7 +67,7 @@ small_attention_tf32_split(const float* __restrict__ k, const float* __restrict_
                            float* __restrict__ kh, float* __restrict__ kl,
                            float* __restrict__ vth, float* __restrict__ vtl, int Nk, int Nkp,
                            int D) {
-  sm90::tf32_split_kv(k, v, kh, kl, vth, vtl, Nk, Nkp, D);
+  sm90::tf32_split_kv<>(k, v, kh, kl, vth, vtl, Nk, Nkp, D);
 }
 
 // the fp32 operand policy (3xTF32) at padded head dim DP; MINB blocks per SM
@@ -77,9 +77,10 @@ small_attention_tf32(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tkh,
                      const __grid_constant__ CUtensorMap tkl,
                      const __grid_constant__ CUtensorMap tvh,
-                     const __grid_constant__ CUtensorMap tvl, float* __restrict__ o, int Nq,
-                     int Nk, int D, float scale_log2) {
-  sm90::attention_fwd_tf32<DP>(tq, tkh, tkl, tvh, tvl, o, Nq, Nk, D, scale_log2);
+                     const __grid_constant__ CUtensorMap tvl, float* __restrict__ o,
+                     float* __restrict__ lse, int Nq, int Nk, int D, float scale_log2) {
+  sm90::attention_fwd_tf32<DP, sm90::F32_BK, sm90::STAGES>(tq, tkh, tkl, tvh, tvl, o, lse, Nq,
+                                                           Nk, D, scale_log2);
 }
 
 // blocks per SM: 4 at DP = 32 (49 KB of shared memory each), 2 at 64 (97 KB),
@@ -88,8 +89,9 @@ template <int DP>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* scratch,
                        int BH, int Nq, int Nk, int D, float scale, cudaStream_t s) {
   constexpr int MINB = DP == 32 ? 4 : DP == 64 ? 2 : 1;
-  return sm90::launch_f32<DP, small_attention_tf32_split, small_attention_tf32<DP, MINB>>(
-      q, k, v, o, scratch, BH, Nq, Nk, D, scale, s);
+  return sm90::launch_f32<DP, sm90::F32_BK, sm90::STAGES, small_attention_tf32_split,
+                          small_attention_tf32<DP, MINB>>(q, k, v, o, nullptr, scratch, BH, Nq,
+                                                          Nk, D, scale, s);
 }
 
 // blocks per SM: 4 up to DP = 64 (40 KB of tiles each), 2 at DP = 128

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "a3r_edge_fwd": [_P] * 10 + [_I] * 4 + [_P],
     "a3r_edge_bwd": [_P] * 10 + [_I] * 5 + [_P],
     "a3r_permute_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
-    "a3r_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "a3r_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "a3r_flash_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
     "a3r_conv3x3": [_P] * 8 + [_I] * 9 + [_P],
     "a3r_upsample2x": [_P] * 6 + [_I] * 5 + [_P],

@@ -65,38 +65,45 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def small_attention_f32_tiles_plain(q, k, v, split: bool = True):
-    """The fp32 kernel's walk in PyTorch: key tiles of F32_BK, one
-    online-softmax pass (running max and sum of the unrounded p, O and the
-    sum rescaled by exp2(m_old - m_new), log2 units), and every product as
-    3xTF32: operands split as hi = tf32(x), lo = tf32(x - hi), the product
-    lo hi + hi lo + hi hi in fp32. split=False runs single-pass TF32 (hi hi
-    alone), the function the split exists to avoid. fp32 in, fp32 out."""
-    def parts(x):
-        hi = tf32_round(x)
-        return hi, tf32_round(x - hi)
+def tf32_mm(a, b, split: bool = True):
+    """a (.., M, K) @ b (.., K, N) as the fp32 kernels' products: operands
+    split as hi = tf32(x), lo = tf32(x - hi), the product lo hi + hi lo +
+    hi hi in fp32 (3xTF32). split=False runs single-pass TF32 (hi hi
+    alone), the function the split exists to avoid."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    if not split:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
-    def mm(a, b):   # a (.., M, K) @ b (.., K, N) at the kernel's accuracy
-        (ah, al), (bh, bl) = parts(a), parts(b)
-        if not split:
-            return ah @ bh
-        return al @ bh + ah @ bl + ah @ bh
 
+def f32_tiles_walk(q, k, v, bk: int, split: bool = True):
+    """The fp32 forward kernels' walk in PyTorch (csrc/sm90_attention_tf32.cuh):
+    key tiles of bk, one online-softmax pass (running max and sum of the
+    unrounded p, O and the sum rescaled by exp2(m_old - m_new), log2 units),
+    every product through tf32_mm. fp32 in; (o fp32, lse fp32 (.., Nq))."""
     D, Nk = q.shape[-1], k.shape[-2]
     scale_log2 = D ** -0.5 * 1.4426950408889634
     q, k, v = q.float(), k.float(), v.float()
     m = torch.full(q.shape[:-1] + (1,), -torch.inf, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
-    for k0 in range(0, Nk, F32_BK):
-        s = mm(q, k[..., k0:k0 + F32_BK, :].transpose(-1, -2))
+    for k0 in range(0, Nk, bk):
+        s = tf32_mm(q, k[..., k0:k0 + bk, :].transpose(-1, -2), split)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s * scale_log2 - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + mm(p, v[..., k0:k0 + F32_BK, :])
+        acc = acc * alpha + tf32_mm(p, v[..., k0:k0 + bk, :], split)
         m = m_new
-    return acc / l
+    return acc / l, ((m + torch.log2(l)) * 0.6931471805599453).squeeze(-1)
+
+
+def small_attention_f32_tiles_plain(q, k, v, split: bool = True):
+    """The fp32 kernel's walk in PyTorch: key tiles of F32_BK, one
+    online-softmax pass and every product as 3xTF32 (f32_tiles_walk).
+    split=False runs single-pass TF32. fp32 in, fp32 out."""
+    return f32_tiles_walk(q, k, v, F32_BK, split)[0]
 
 
 def small_attention_twin(q, k, v):

@@ -1,18 +1,22 @@
-"""Profile K6's fp32 forward and K9's bf16 backward at D = 256 on one GPU, by
-launch, beside torch's scaled_dot_product_attention.
+"""Profile K6's fp32 forward, K9's fp32 forward and backward and K9's bf16
+backward at D = 256 on one GPU, by launch, beside torch's
+scaled_dot_product_attention.
 
     python -m align3r_tpu_torch.tools.profile_attention [--out build/attention_profile.json]
         [--bits build/attention_bits.pt]
 
-K6 fp32 runs at the encoder's training shape (4, 16, 576, 64); K9's bf16
-backward at (4, 4, 1024, 256), on the plain forward's (o, lse) and a seeded
-dO. It calls only what every tree of the port has (``small_attention(q, k,
-v)``, ``flash_attention_plain`` and ``flash_attention_bwd(q, k, v, o, lse,
-do)``), so a copy of this file profiles an older tree as well. Per variant
-it reports:
-- the device time: K6 from a CUDA graph of 20 calls (CUDA events); the
-  backward as the sum of its kernels' device time under torch.profiler over
-  10 calls (and from a CUDA graph), as chip_smoke.py times it;
+K6 fp32 runs at the encoder's training shape (4, 16, 576, 64); K9 fp32 at
+the 512x512 training shape (4, 16, 1024, 64), (4, 8, 1024, 128) and
+(4, 4, 1024, 256); K9's bf16 backward at (4, 4, 1024, 256). The backwards run
+on the plain forward's (o, lse) and a seeded dO. It calls only what every
+tree of the port has (``small_attention(q, k, v)``, ``flash_attention_fwd``,
+``flash_attention_plain`` and ``flash_attention_bwd(q, k, v, o, lse, do)``),
+so a copy of this file profiles an older tree as well. Per variant it
+reports:
+- the device time: the forwards from a CUDA graph of 20 calls (CUDA
+  events); the backwards as the sum of their kernels' device time under
+  torch.profiler over 10 calls (and from a CUDA graph), as chip_smoke.py
+  times them;
 - SDPA's time on the same inputs, timed the same way (its backward alone on
   a retained graph), which the port never calls;
 - its bound: bytes at 3.35 TB/s against operations at the tensor cores'
@@ -21,11 +25,11 @@ it reports:
   on the tensor cores);
 - its split by launch under torch.profiler (device ms per call, by kernel
   name) and the largest error against the plain version.
-With --bits it also runs the variants this tool does not time, on seeded
-inputs: K6 bf16 and K9's bf16 forward and backward at D = 64 and 128, and
-K1's attention launch; it saves their outputs to that file, or, where the
-file exists (written by another tree), reports which are bit-identical to
-it. It prints the card's name and power limit and one JSON line, and writes
+With --bits it also runs, on seeded inputs, the variants whose code K9's
+fp32 kernels share or sit beside: K6 bf16 and fp32, K9's bf16 forward and
+backward at D = 64, 128 and 256, and K1's attention
+launch; it saves their outputs to that file, or, where the file exists
+(written by another tree), reports which are bit-identical to it. It prints the card's name and power limit and one JSON line, and writes
 the same JSON to --out.
 """
 from __future__ import annotations
@@ -92,6 +96,42 @@ def profile_k9_bwd_d256(dev, gen) -> dict:
             "max_rel_err": max(rel_err(a, r) for a, r in zip(kern(), refs))}
 
 
+def profile_k9_f32(dev, gen, shape) -> list:
+    """K9's fp32 forward and backward at `shape`, each beside SDPA, split by
+    launch (the split pre-pass, the attention; the pre-pass, dK/dV, dQ)."""
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import flash_attention as fa
+    B, H, N, D = shape
+    q, k, v, do = (torch.randn(*shape, generator=gen, device=dev) for _ in range(4))
+    heads = B * H
+    kern = lambda: fa.flash_attention_fwd(q, k, v)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v)
+    b, by = bound_ms(4 * heads * N * D * 4 + heads * N * 4, 3 * 4 * heads * N * N * D, PEAK_TF32)
+    ms = graph_ms(kern, 20)
+    sp = split_site("K9 fp32", kern, (("split", "split"), ("attention", "flash_fwd")), 10,
+                    graph=False)
+    o, lse = fa.flash_attention_plain(q, k, v)
+    fwd = {"kernel": "K9 fp32", "shape": str(shape), "ms": ms, "library_ms": graph_ms(lib, 20),
+           "bound_ms": b, "bound_by": by, "bound_share": b / ms, "split_ms": sp["split_ms"],
+           "kernels_ms": sp["kernels_ms"], "max_rel_err": rel_err(kern()[0], o)}
+    kb = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    so = F.scaled_dot_product_attention(qs, ks, vs)
+    lb = lambda: torch.autograd.grad(so, (qs, ks, vs), do, retain_graph=True)
+    b, by = bound_ms(8 * heads * N * D * 4 + heads * N * 4, 3 * 10 * heads * N * N * D,
+                     PEAK_TF32)
+    sp = split_site("K9 fp32 bwd", kb, (("prep", "prep|_di"), ("dK/dV", "dkv"), ("dQ", "dq")),
+                    10, graph=False)
+    ms = sp["kernel_sum_ms"]
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    bwd = {"kernel": "K9 fp32 bwd", "shape": str(shape), "ms": ms, "ms_graph": graph_ms(kb, 10),
+           "library_ms": split_site("SDPA bwd", lb, (), 10, graph=False)["kernel_sum_ms"],
+           "bound_ms": b, "bound_by": by, "bound_share": b / ms, "split_ms": sp["split_ms"],
+           "kernels_ms": sp["kernels_ms"],
+           "max_rel_err": max(rel_err(a, r) for a, r in zip(kb(), refs))}
+    return [fwd, bwd]
+
+
 def bit_outputs(dev) -> dict:
     """The outputs of the attention variants whose code is shared with the
     timed ones, on seeded inputs."""
@@ -101,8 +141,9 @@ def bit_outputs(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev).to(torch.bfloat16)
     out = {"K6 bf16": sa.small_attention(*(rnd(4, 16, 576, 64) for _ in range(3))),
+           "K6 fp32": sa.small_attention(*(rnd(4, 16, 576, 64).float() for _ in range(3))),
            "K1 attention": fs.site_attention(*(rnd(16, 576, 1024) for _ in range(3)), 16)}
-    for D, H in ((64, 16), (128, 8)):
+    for D, H in ((64, 16), (128, 8), (256, 4)):
         q, k, v, do = (rnd(4, H, 1024, D) for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v)
         out[f"K9 fwd D={D}"] = torch.cat([o.float().flatten(), lse.flatten()])
@@ -127,6 +168,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"card": card, "tree": os.getcwd(),
            "kernels": [profile_k6_f32(dev, gen), profile_k9_bwd_d256(dev, gen)]}
+    for shape in ((4, 16, 1024, 64), (4, 8, 1024, 128), (4, 4, 1024, 256)):
+        res["kernels"] += profile_k9_f32(dev, gen, shape)
     for r in res["kernels"]:
         print(json.dumps(r), flush=True)
     if args.bits:

@@ -13,9 +13,11 @@ final result line:
                 instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
                 bf16 conv_sm90, 4 each) must spill nothing and its SASS
                 (cuobjdump -sass) must hold HGMMA instructions; so must K9's
-                bf16 D = 256 backward (dK/dV and dQ) and K6's fp32 forward
-                (3 instances); no bf16 instance of the old WMMA backward may
-                be in the library.
+                bf16 D = 256 backward (dK/dV and dQ), K6's fp32 forward (3
+                instances) and K9's fp32 forward and backward (dK/dV and dQ)
+                at D = 64, 128 and 256; no bf16 instance of the old WMMA
+                backward, and no scalar-FMA fp32 attention kernel, may be in
+                the library.
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events; K1
@@ -28,7 +30,11 @@ final result line:
                 SDPA's as the sum of their kernels' device time under
                 torch.profiler). K1's attention launch alone is held to K6 bit
                 for bit on the same heads laid out per head, and timed beside
-                K6 and SDPA on that layout. Each GEMM launch of K1 and K2
+                K6 and SDPA on that layout. K1/K2's LayerNorm launch alone
+                (the encoder's 9,216 rows x 1024, the decoder's 2 streams x
+                18,432 rows x 768) against its plain version, timed from a
+                CUDA graph beside F.layer_norm (one call per stream). Each
+                GEMM launch of K1 and K2
                 alone (q/k with RoPE, v, out-projection with the residual,
                 fc1 with GELU, fc2 with the residual; encoder and decoder
                 shapes) against gemm_plain, timed from a CUDA graph beside
@@ -91,8 +97,8 @@ final result line:
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base), K8 (the head tail at the main path's shape, and fp32), both timed
 from a CUDA graph and split by launch beside the XLA-path chain, and K9
-(forward and backward at the 512x512 training shapes, a ragged length, fp32,
-D = 128 and D = 256) to their plain versions. Then the card line as nvidia-smi
+(forward and backward at the 512x512 training shapes, a ragged length,
+D = 128 and D = 256, in bf16 and in fp32) to their plain versions. Then the card line as nvidia-smi
 prints it, one JSON line with the kernels (time, plain time, bound, launches
 on their path, library-call time), and last {"ok": true, "device": {...}}.
 The process fails if jax or the JAX package (align3r_tpu) was imported.
@@ -163,11 +169,15 @@ def ptxas_usage(log: str) -> dict:
 CORE_INSTANCES = {"gemm_sm90": 4, "conv_sm90": 4}
 # the attention kernels this build must hold on the warpgroup-MMA core, by a
 # regular expression on the mangled name: K9's bf16 backward at D = 256
-# (dK/dV and dQ) and K6's fp32 forward (3xTF32, at DP = 32, 64, 128)
+# (dK/dV and dQ), K6's fp32 forward (3xTF32, at DP = 32, 64, 128) and K9's
+# fp32 forward and backward (dK/dV and dQ) at D = 64, 128, 256
 ATTN_INSTANCES = {r"flash_bwd_dkv_sm90ILi256E": 1, r"flash_bwd_dq_sm90ILi256E": 1,
-                  r"small_attention_tf32I": 3}
+                  r"small_attention_tf32I": 3, r"flash_fwd_tf32I": 3,
+                  r"flash_bwd_dkv_tf32I": 3, r"flash_bwd_dq_tf32I": 3}
 # the old WMMA backward kernels in bf16, which must not be in the library
 WMMA_BF16 = r"flash_bwd_(dkv|dq)I(?!f)"
+# the scalar-FMA fp32 attention kernels, which must not be in the library
+FMA_F32 = r"flash_fwd_f32|flash_bwd_(dkv|dq)If"
 
 
 def hgmma_counts(lib_path, patterns) -> dict:
@@ -366,6 +376,45 @@ def check_sites(dev, gen):
                          ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
                          bound_by=b_by))
         del x, w1, w2, out, ref
+    rows += check_layernorm(dev, gen)
+    return rows
+
+
+def check_layernorm(dev, gen):
+    """K1/K2's LayerNorm launch alone (fused_site._ln_cuda) at the encoder's
+    9,216 rows x 1024 and the decoder's 2 streams x 18,432 rows x 768, bf16,
+    against its plain version _ln. Tolerance: 2 bf16 ulps of max|plain|
+    (1.6e-2 x max), as for the sites: fp32 statistics summed in another
+    order, one rounding to bf16. Timed from a CUDA graph beside
+    F.layer_norm on the same bf16 rows with bf16 weights (one call per
+    stream), the library call the port never makes; bound by bytes (x read,
+    y written, the fp32 scale and bias read)."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import _lib
+    from align3r_tpu_torch.ops import fused_site as fs
+    N = (H // 16) * (W // 16)
+    lib = _lib.library()
+    rows = []
+    for name, G, Bn, C in (("encoder", 1, 16, 1024), ("decoder", 2, 32, 768)):
+        x = torch.randn(G, Bn, N, C, generator=gen, device=dev).to(torch.bfloat16)
+        p = (1 + 0.1 * torch.randn(G, C, generator=gen, device=dev),
+             0.1 * torch.randn(G, C, generator=gen, device=dev))
+        wb = [t.to(torch.bfloat16) for t in p]
+        kern = lambda: fs._ln_cuda(lib, x, p, _lib.stream())
+        plain = lambda: fs._ln(x, p)
+        library = lambda: [F.layer_norm(x[g], (C,), wb[0][g], wb[1][g], 1e-6) for g in range(G)]
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        b_ms, b_by = bound(2 * G * Bn * N * C * 2 + 2 * G * C * 4, 8 * G * Bn * N * C, PEAK_FP32)
+        rows.append(ratios(dict(
+            kernel="K1", shape=f"LayerNorm launch {name} G={G} rows={Bn * N} C={C} bf16",
+            max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+            ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
+            ms=graph_time(kern, 20), ms_eager=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+            library_ms=graph_time(library, 20), bound_ms=b_ms, bound_by=b_by)))
+        del x, out, ref
     return rows
 
 
@@ -681,9 +730,10 @@ def check_k9(dev, gen):
     """K9's forward and backward against their plain versions at the 512x512
     training shapes (the encoder's 4 images x 16 heads, the decoder's and
     prior branch's 4 x 12 heads, 1024 tokens, D = 64, bf16), a ragged length
-    (1000), fp32, D = 128 and D = 256 (whose backward runs two warpgroups per
-    dK/dV block and 32-key dQ tiles). The backward is held on the same
-    (o, lse, dO).
+    (1000), D = 128 and D = 256 (whose bf16 backward runs two warpgroups per
+    dK/dV block and 32-key dQ tiles), and fp32 at D = 64, 128 and 256 (3xTF32
+    on the tensor cores; the D = 256 backward on clusters of two CTAs). The
+    backward is held on the same (o, lse, dO).
     Tolerance: 2 bf16 ulps of max|plain| (1.6e-2 x max) in bf16: both round P
     against the same running max over the same key blocks, block_k (and P,
     dS to bf16 in the backward), summed in another order; 1e-4 x max in fp32.
@@ -707,7 +757,9 @@ def check_k9(dev, gen):
                             ("ragged", (4, 16, 1000, 64), torch.bfloat16),
                             ("fp32", (4, 16, 1024, 64), torch.float32),
                             ("D=128", (4, 8, 1024, 128), torch.bfloat16),
-                            ("D=256", (4, 4, 1024, 256), torch.bfloat16)):
+                            ("D=256", (4, 4, 1024, 256), torch.bfloat16),
+                            ("fp32 D=128", (4, 8, 1024, 128), torch.float32),
+                            ("fp32 D=256", (4, 4, 1024, 256), torch.float32)):
         q, k, v, do = (torch.randn(*shape, generator=gen, device=dev).to(dt) for _ in range(4))
         (o, lse), (ro, rlse) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_plain(q, k, v)
         grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do)
@@ -1464,7 +1516,7 @@ def main() -> int:
         attn_sass = {k: n for k, n in sass.items() if k not in core_sass}
         print("build: HGMMA instructions per GEMM-core instance " + json.dumps(core_sass),
               flush=True)
-        print("build: HGMMA instructions per K9 D=256 backward and K6 fp32 kernel "
+        print("build: HGMMA instructions per K9 D=256 backward, K6 fp32 and K9 fp32 kernel "
               + json.dumps(attn_sass), flush=True)
         core = {k: v for k, v in usage.items() if any(n in k for n in CORE_INSTANCES)}
         counts = {n: sum(n in k for k in core) for n in CORE_INSTANCES}
@@ -1483,10 +1535,12 @@ def main() -> int:
         attn_counts = {p: sum(bool(re.search(p, k)) for k in attn) for p in ATTN_INSTANCES}
         attn_bad = [k for k, (_, st, ld) in attn.items() if st or ld]
         wmma = [k for k in usage if re.search(WMMA_BF16, k)]
-        if (attn_counts != ATTN_INSTANCES or attn_bad or wmma
+        fma = [k for k in usage if re.search(FMA_F32, k)]
+        if (attn_counts != ATTN_INSTANCES or attn_bad or wmma or fma
                 or sorted(attn_sass) != sorted(attn) or not all(attn_sass.values())):
             return fail(phase, f"attention instances {attn_counts} ({ATTN_INSTANCES} "
                                f"expected); spilling: {attn_bad}; bf16 WMMA backward: {wmma}; "
+                               f"FMA fp32 attention: {fma}; "
                                f"without HGMMA: {[k for k, n in attn_sass.items() if not n]}")
 
         phase = "kernels"

@@ -469,15 +469,15 @@ def test_small_attention_single_tile_scores(dev, D):
     _bf16_close(out, sa.small_attention_plain(q, k, v))
 
 
-@pytest.mark.parametrize("kernel", ["K6", "K9", "K6 fp32"])
+@pytest.mark.parametrize("kernel", ["K6", "K9", "K6 fp32", "K9 fp32"])
 def test_attention_forwards_are_deterministic(dev, kernel):
     """Two launches on the same inputs give the same bits (no atomics, no
     split over keys)."""
     g = torch.Generator(device=dev).manual_seed(8)
-    shape = (2, 5, 1000, 64) if kernel == "K9" else (2, 5, 576, 64)
-    dtype = torch.float32 if kernel == "K6 fp32" else torch.bfloat16
+    shape = (2, 5, 1000, 64) if kernel.startswith("K9") else (2, 5, 576, 64)
+    dtype = torch.float32 if kernel.endswith("fp32") else torch.bfloat16
     q, k, v = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(3))
-    if kernel != "K9":
+    if not kernel.startswith("K9"):
         a, b = sa.small_attention(q, k, v), sa.small_attention(q, k, v)
     else:
         (a, la), (b, lb) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_fwd(q, k, v)
@@ -686,35 +686,38 @@ def test_flash_attention_bwd_sm90(dev, shape):
         _close(a, r, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
-def test_flash_attention_bwd_single_query_row(dev, D):
+def test_flash_attention_bwd_single_query_row(dev, D, dtype):
     """dO is zero but for query row 37: dV = P^T dO is P's row 37 (one query
     column of P^T per key) times dO's row, so each key's P^T entry is held
     to the plain version (the column's lse2 and Di read from the staged
-    vectors), across four key tiles and a ragged one."""
+    vectors; in fp32 the query's place in the transposed copies' 8-row
+    order), across four key tiles and a ragged one."""
     g = torch.Generator(device=dev).manual_seed(14)
     shape = (1, 2, 300, D)
-    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
-    do = torch.zeros(shape, device=dev, dtype=torch.bfloat16)
-    do[:, :, 37] = torch.randn(1, 2, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(3))
+    do = torch.zeros(shape, device=dev, dtype=dtype)
+    do[:, :, 37] = torch.randn(1, 2, D, generator=g, device=dev).to(dtype)
     o, lse = fa.flash_attention_plain(q, k, v)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     for a, r in zip(grads, refs):
-        _close(a, r, torch.bfloat16)
+        _close(a, r, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("zero", ["q", "k"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-def test_flash_attention_bwd_uniform_p(dev, zero, D):
+def test_flash_attention_bwd_uniform_p(dev, zero, D, dtype):
     """Q = 0 or K = 0 makes S = 0 and P uniform (1/N), so the products that
     take a transposed operand stand alone: dV = P^T dO, and dQ = dS K (K = 0:
     dK = dS^T Q) against the plain version; the gradient through the zero
     operand is exactly 0."""
     g = torch.Generator(device=dev).manual_seed(15)
     shape = (2, 2, 200, D)
-    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev).to(dtype)
                    for _ in range(4))
     if zero == "q":
         q = torch.zeros_like(q)
@@ -724,27 +727,48 @@ def test_flash_attention_bwd_uniform_p(dev, zero, D):
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
     rq, rk, rv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    _close(dv, rv, torch.bfloat16)
+    _close(dv, rv, dtype)
     if zero == "q":
-        _close(dq, rq, torch.bfloat16)
+        _close(dq, rq, dtype)
         assert torch.equal(dk, torch.zeros_like(dk))
     else:
-        _close(dk, rk, torch.bfloat16)
+        _close(dk, rk, dtype)
         assert torch.equal(dq, torch.zeros_like(dq))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])
-def test_flash_attention_bwd_is_deterministic(dev, D):
-    """Two launches of the bf16 backward give the same bits (two kernels, no
+def test_flash_attention_bwd_is_deterministic(dev, D, dtype):
+    """Two launches of the backward give the same bits (two kernels, no
     atomics)."""
     g = torch.Generator(device=dev).manual_seed(16)
-    q, k, v, do = (torch.randn(2, 5, 1000, D, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(2, 5, 1000, D, generator=g, device=dev).to(dtype)
                    for _ in range(4))
     o, lse = fa.flash_attention_fwd(q, k, v)
     a = fa.flash_attention_bwd(q, k, v, o, lse, do)
     b = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_f32_same_bits_at_the_training_shape(dev):
+    """K9's fp32 forward (the split pre-pass, then the K and V^T rings) and
+    backward (the pre-pass, then dK/dV and dQ, each with two rings refilled
+    behind fence.proxy.async) launched 8 times at the 512x512 training shape
+    give the same bits each time, within the fp32 tolerance of their plain
+    versions."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v, do = (torch.randn(4, 16, 1024, 64, generator=g, device=dev) for _ in range(4))
+    fwd = [fa.flash_attention_fwd(q, k, v) for _ in range(8)]
+    o, lse = fwd[0]
+    bwd = [fa.flash_attention_bwd(q, k, v, o, lse, do) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, o) and torch.equal(b, lse) for a, b in fwd[1:])
+    assert all(torch.equal(x, y) for b in bwd[1:] for x, y in zip(b, bwd[0]))
+    ro, rlse = fa.flash_attention_plain(q, k, v)
+    _close(o, ro, torch.float32)
+    for a, r in zip(bwd[0], fa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
+        _close(a, r, torch.float32)
 
 
 @pytest.mark.parametrize("cross", [False, True])
