@@ -16,13 +16,20 @@ against it by the `tests/test_torch_*.py` parity tests.
   dispatch.
 - ``geometry``   — camera geometry, pose parameterisations and
   depth-based warping.
-- ``inference``  — the pairwise engine (unique-image encode, batched decode).
+- ``inference``  — the pairwise engine (unique-image encode, batched decode)
+  and the frame and prior loaders.
 - ``alignment``  — MST initialisation, the Adam global-alignment solve with
-  its flow terms, and the self-supervised motion masks.
-- ``pipeline``   — ``reconstruct_scene``, the per-video entry point.
+  its flow terms, the self-supervised motion masks and point-cloud cleaning.
+- ``pipeline``   — ``reconstruct_scene`` (and its hierarchical form), the
+  per-video entry point.
+- ``eval``       — the scene writers (PLY, HTML viewer, .glb) and the
+  trajectory formats and metrics; ``utils`` — PNG and Sintel files.
+- ``compat``     — the dust3r-style API (``load_model``, ``make_pairs``,
+  ``inference``, ``global_aligner``).
 - ``training``   — losses, the train step and optimizer, the data loader
   and ``train``, the fine-tuning entry point.
-- ``tools``      — measurement scripts run on the card.
+- ``tools``      — the demo (``python -m align3r_tpu_torch.tools.demo``)
+  and measurement scripts run on the card.
 
 This package imports ``torch`` and never ``jax`` or ``align3r_tpu``.
 """

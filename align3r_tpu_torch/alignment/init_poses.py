@@ -162,13 +162,21 @@ def fast_pnp(pts3d: np.ndarray, focal: Optional[float], msk: np.ndarray,
             err = np.linalg.norm(proj - pixels, axis=1)
             inl = ok & (err < 5.0)
             if inl.sum() > f_best[0]:
-                f_best = (int(inl.sum()), inl)
+                f_best = (int(inl.sum()), inl, R, t)
         if f_best[0] >= 6 and f_best[0] > best[0]:
             inl = f_best[1]
             pose = _dlt_pose(X[inl], xn[inl])
             if pose is not None:
-                R, t = _refine_pose(*pose, X[inl], pixels[inl], f, pp)
-                best = (f_best[0], R, t, f)
+                # at a focal near zero every point projects to the principal
+                # point whatever the pose, and a DLT can put the camera ~1e27
+                # away (an inf loss downstream; cv2's SQPNP stays bounded):
+                # take the inliers' refit, else the RANSAC hypothesis, if its
+                # translation is bounded; else this focal gives no pose
+                refit = _refine_pose(*pose, X[inl], pixels[inl], f, pp)
+                for R, t in (refit, f_best[2:]):
+                    if np.abs(t).max() <= 1e6 * np.abs(X).max():
+                        best = (f_best[0], R, t, f)
+                        break
     if not best[0]:
         return None
     _, R, t, f = best
@@ -186,6 +194,50 @@ def _register(a, b, w):
 def _apply(T, pts):
     return geotrf(torch.from_numpy(np.asarray(T, np.float32)),
                   torch.from_numpy(np.asarray(pts, np.float32))).numpy()
+
+
+def edge_score_matrix(data: SceneData, cfg: SceneConfig, conf_i, conf_j):
+    """(n, n) matrix of edge scores mean(conf_i) mean(conf_j), NaN off the
+    graph (JAX init_poses.py:89-102)."""
+    host = lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    ei, ej = host(data.ei), host(data.ej)
+    E = ei.shape[0]
+    scores = host(conf_i).reshape(E, -1).mean(1) * host(conf_j).reshape(E, -1).mean(1)
+    m = np.full((cfg.n_imgs, cfg.n_imgs), np.nan)
+    for k, (i, j) in enumerate(zip(ei, ej)):
+        m[int(i), int(j)] = float(scores[k])
+    return m
+
+
+def save_edge_score_heatmap(path: str, data: SceneData, cfg: SceneConfig,
+                            conf_i, conf_j):
+    """The edge-score matrix as <path>.npy, and as a heatmap at `path` where
+    matplotlib is installed (JAX init_poses.py:105-134)."""
+    m = edge_score_matrix(data, cfg, conf_i, conf_j)
+    np.save(str(path) + ".npy", m)
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return m
+    n = cfg.n_imgs
+    size = max(4.0, 5.5 * np.log(max(n, 2)) - 2)
+    fig, ax = plt.subplots(figsize=(size, size * 0.75))
+    im = ax.imshow(m, cmap="viridis")
+    fig.colorbar(im, ax=ax)
+    if n <= 30:
+        for i in range(n):
+            for j in range(n):
+                if np.isfinite(m[i, j]):
+                    ax.text(j, i, f"{m[i, j]:.1f}", ha="center", va="center",
+                            fontsize=7, color="w")
+    ax.set_title("Heatmap of Edge Scores")
+    ax.set_xlabel("Node")
+    ax.set_ylabel("Node")
+    fig.savefig(path, bbox_inches="tight")
+    plt.close(fig)
+    return m
 
 
 def mst_init(params: Dict, data: SceneData, cfg: SceneConfig,

@@ -22,7 +22,7 @@ import torch
 
 from align3r_tpu_torch.alignment.schedules import schedule_array
 from align3r_tpu_torch.geometry.core import geotrf, safe_norm, xy_grid
-from align3r_tpu_torch.geometry.poses import (pose_vec_to_matrix,
+from align3r_tpu_torch.geometry.poses import (matrix_to_pose_vec, pose_vec_to_matrix,
                                               sim3_vec_to_matrix)
 from align3r_tpu_torch.ops.edge_loss import (edge_loss, fold_pose_adaptors,
                                              permute_packed, term_csr)
@@ -423,3 +423,41 @@ def set_depthmap(params, idx, depth):
     d = params["im_depthmaps"].clone()
     d[torch.as_tensor(idx)] = logd.to(d.device)
     return dict(params, im_depthmaps=d)
+
+
+# ------------------------------------------- preset / freeze (known values)
+
+def _rows(t, idx, value):
+    """t with rows `idx` set to `value`; indices past t's rows are dropped,
+    as a JAX scatter drops them."""
+    idx = torch.as_tensor(np.asarray(idx)).reshape(-1)
+    value = torch.as_tensor(value, dtype=t.dtype, device=t.device)
+    if value.ndim == t.ndim:
+        value = value[idx < t.shape[0]]
+    out = t.clone()
+    out[idx[idx < t.shape[0]].to(t.device)] = value
+    return out
+
+
+def preset_pose(params, masks, idx, poses_c2w):
+    """Set known cam2world poses and freeze them (JAX scene.py:708-714)."""
+    vecs = matrix_to_pose_vec(torch.as_tensor(np.asarray(poses_c2w), dtype=torch.float32))
+    return (dict(params, im_poses=_rows(params["im_poses"], idx, vecs)),
+            dict(masks, im_poses=_rows(masks["im_poses"], idx, 0.0)))
+
+
+def preset_focal(params, masks, cfg: SceneConfig, idx, focals):
+    return (set_focal(params, cfg, idx, focals),
+            dict(masks, im_focals=_rows(masks["im_focals"], idx, 0.0)))
+
+
+def preset_principal_point(params, masks, data: SceneData, idx, pps):
+    pp = torch.as_tensor(np.asarray(pps), dtype=torch.float32, device=data.base_pp.device)
+    v = (pp - data.base_pp) / 10.0
+    return (dict(params, im_pp=_rows(params["im_pp"], idx, v)),
+            dict(masks, im_pp=_rows(masks["im_pp"], idx, 0.0)))
+
+
+def preset_depthmap(params, masks, idx, depths):
+    return (set_depthmap(params, idx, depths),
+            dict(masks, im_depthmaps=_rows(masks["im_depthmaps"], idx, 0.0)))

@@ -116,3 +116,17 @@ def parse_model_string(s: str) -> Align3RConfig:
         conf_mode=tuple(captured.get("conf_mode", ("exp", 1.0, INF))),
         landscape_only=bool(captured.get("landscape_only", True)),
     )
+
+
+def model_string(cfg: Align3RConfig) -> str:
+    """The reference constructor string of a config, the `args.model` a
+    reference checkpoint carries; `parse_model_string` reads it back."""
+    return ("AsymmetricCroCo3DStereo("
+            f"pos_embed={cfg.pos_embed!r}, img_size={tuple(cfg.img_size)!r}, "
+            f"head_type={cfg.head_type!r}, output_mode={cfg.output_mode!r}, "
+            f"depth_mode={tuple(cfg.depth_mode)!r}, conf_mode={tuple(cfg.conf_mode)!r}, "
+            f"enc_embed_dim={cfg.enc_embed_dim}, enc_depth={cfg.enc_depth}, "
+            f"enc_num_heads={cfg.enc_num_heads}, dec_embed_dim={cfg.dec_embed_dim}, "
+            f"dec_depth={cfg.dec_depth}, dec_num_heads={cfg.dec_num_heads}, "
+            f"mlp_ratio={cfg.mlp_ratio!r}, patch_size={cfg.patch_size}, "
+            f"landscape_only={cfg.landscape_only!r})")

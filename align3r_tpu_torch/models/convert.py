@@ -29,14 +29,16 @@ from align3r_tpu_torch.models.config import Align3RConfig, parse_model_string
 def load_torch_checkpoint(path: str, cfg: Align3RConfig | None = None):
     """A reference .pth -> (state_dict, cfg), as the JAX load_torch_checkpoint
     (convert.py:165-178) reads it: cfg from the checkpoint's ``args.model``
-    string unless given, the ``model`` entry (or the whole file) as the state
-    dict, and dec_blocks2 copied from dec_blocks when it is absent (reference
-    model.py:114-121). Load the result with ``load_state_dict(strict=True)``."""
+    string unless given (args a Namespace, as the reference writes it, or a
+    dict, as the port's export_torch_checkpoint does), the ``model`` entry
+    (or the whole file) as the state dict, and dec_blocks2 copied from
+    dec_blocks when it is absent (reference model.py:114-121). Load the
+    result with ``load_state_dict(strict=True)``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if cfg is None:
         args = ckpt.get("args")
-        cfg = (parse_model_string(args.model) if hasattr(args, "model")
-               else Align3RConfig())
+        model = args.get("model") if isinstance(args, dict) else getattr(args, "model", None)
+        cfg = parse_model_string(model) if model else Align3RConfig()
     sd = dict(ckpt.get("model", ckpt))
     if not any(k.startswith("dec_blocks2") for k in sd):
         for k in list(sd):

@@ -1,5 +1,5 @@
 """Per-video reconstruction, the port's entry point (port of
-align3r_tpu/pipeline.py:188-286).
+align3r_tpu/pipeline.py).
 
 frames + prior pointclouds -> pair graph -> engine (encoder, dual-stream
 decoder, DPT heads; kernels K1, K2) -> optional RAFT flows in both
@@ -7,24 +7,21 @@ directions of every edge and self-supervised motion masks -> MST init
 (host) -> Adam alignment (kernels K3, K4 on observations packed by K5; the
 flow variant adds the ego-flow term and the depth regulariser) ->
 SceneResult with poses, focals, intrinsics, depths, confidences, dynamic
-masks and their savers.
+masks, sky masking and their savers. `reconstruct_scene_hierarchical` solves
+long videos as a coarse keyframe solve and clip solves anchored to it.
 
-Not in this slice: SAM2 refinement of the motion masks (ROADMAP queue 1,
-item 4: asking for it raises NotImplementedError) and the hierarchical
-variant.
+SAM2 refinement of the motion masks is not ported yet: asking for it raises
+NotImplementedError (ROADMAP queue 1, the "SAM2" item).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-import struct
 import time
-import zlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-from scipy.spatial.transform import Rotation
 
 from align3r_tpu_torch.inference.pairs import make_pairs
 from align3r_tpu_torch.alignment.flow import flow_forward
@@ -34,10 +31,13 @@ from align3r_tpu_torch.alignment.scene import (
     get_depthmaps_raw, get_focals, get_im_poses, get_intrinsics,
     get_principal_points, global_alignment_loop, pairwise_pts_loss)
 from align3r_tpu_torch.alignment.pair_viewer import motion_masks_from_pairs
+from align3r_tpu_torch.eval.trajectory import poses_to_traj, save_tum_trajectory
+from align3r_tpu_torch.eval.viz import segment_sky
 from align3r_tpu_torch.inference.engine import inference
 from align3r_tpu_torch.models.align3r import PreparedAlign3R
 from align3r_tpu_torch.models.raft import raft_forward
 from align3r_tpu_torch.models.raft1 import raft1_forward
+from align3r_tpu_torch.utils.png import write_png
 
 
 def _np(t):
@@ -86,14 +86,11 @@ class SceneResult:
 
     # -------------------------------------------------------------- savers
     def save_tum_poses(self, path):
-        """TUM trajectory: one 'ts x y z qw qx qy qz' line per frame."""
-        poses = self.get_im_poses()
-        with open(path, "w") as f:
-            for t, c2w in enumerate(poses):
-                qx, qy, qz, qw = Rotation.from_matrix(c2w[:3, :3]).as_quat()
-                row = [*c2w[:3, 3], qw, qx, qy, qz]
-                f.write(f"{float(t)} " + " ".join(str(v) for v in row) + "\n")
-        return poses
+        """TUM trajectory: one 'ts x y z qw qx qy qz' line per frame.
+        Returns the (N, 7) rows."""
+        traj = poses_to_traj(self.get_im_poses())
+        save_tum_trajectory(traj, path)
+        return traj[0]
 
     def save_focals(self, path):
         np.savetxt(path, self.get_focals(), fmt="%.6f")
@@ -109,8 +106,8 @@ class SceneResult:
         for i, d in enumerate(depths):
             np.save(os.path.join(out_dir, f"frame_{i + start:04d}.npy"), d)
             dn = (d - d.min()) / max(d.max() - d.min(), 1e-8)
-            _save_gray_png((dn * 255).astype(np.uint8),
-                           os.path.join(out_dir, f"frame_{i + start:04d}.png"))
+            write_png((dn * 255).astype(np.uint8),
+                      os.path.join(out_dir, f"frame_{i + start:04d}.png"))
         return depths
 
     def save_conf_maps(self, out_dir, start: int = 0):
@@ -128,25 +125,30 @@ class SceneResult:
                  else np.zeros((self.cfg.n_imgs,) + tuple(self.cfg.imshape), bool))
         os.makedirs(out_dir, exist_ok=True)
         for i, m in enumerate(masks):
-            _save_gray_png((np.asarray(m) > 0).astype(np.uint8) * 255,
-                           os.path.join(out_dir, f"dynamic_mask_{i + start}.png"))
+            write_png((np.asarray(m) > 0).astype(np.uint8) * 255,
+                      os.path.join(out_dir, f"dynamic_mask_{i + start}.png"))
         return masks
 
+    def mask_sky(self):
+        """Zero the confidence of HSV-heuristic sky pixels (eval.viz.
+        segment_sky) on the device where the scene lives. Returns the new
+        (n, H, W) confidences."""
+        assert self.imgs is not None
+        n, (H, W) = self.cfg.n_imgs, self.cfg.imshape
+        sky = np.stack([segment_sky(im * 0.5 + 0.5) for im in self.imgs])
+        conf = self.data.im_conf.reshape(n, H, W).clone()
+        conf[torch.as_tensor(sky, device=conf.device)] = 0
+        self.data = dataclasses.replace(self.data, im_conf=conf.reshape(n, -1))
+        return _np(conf)
 
-def _save_gray_png(img: np.ndarray, path: str):
-    """Minimal 8-bit grayscale PNG writer (zlib only, no imaging library)."""
-    h, w = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(tag, body):
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw))
-                + chunk(b"IEND", b""))
+    def save_rgb_imgs(self, out_dir, start: int = 0):
+        """frame_XXXX.png per frame: the input frames as 8-bit RGB."""
+        os.makedirs(out_dir, exist_ok=True)
+        if self.imgs is None:
+            return
+        for i, im in enumerate(self.imgs):
+            write_png(((im * 0.5 + 0.5) * 255).astype(np.uint8),
+                      os.path.join(out_dir, f"frame_{i + start:04d}.png"))
 
 
 def _sync(device):
@@ -209,7 +211,7 @@ def reconstruct_scene(
     if sam2_mask_refine:
         raise NotImplementedError(
             "SAM2 refinement of the motion masks is not ported yet "
-            "(ROADMAP queue 1, item 4)")
+            '(ROADMAP queue 1, the "SAM2" item)')
     dev = model.device
     timings = {}
     n = imgs.shape[0]
@@ -279,3 +281,48 @@ def reconstruct_scene(
                        dynamic_masks=(None if dynamic_masks is None
                                       else np.asarray(dynamic_masks)),
                        timings=timings)
+
+
+def reconstruct_scene_hierarchical(
+    imgs, priors, model: PreparedAlign3R,
+    *, clip_size: int = 10, coarse_niter: int = 300, coarse_lr: float = 0.01,
+    niter: int = 300, lr: float = 0.01, **kw
+) -> Tuple[List[SceneResult], np.ndarray, np.ndarray]:
+    """Long-video solve (port of align3r_tpu/pipeline.py:289-333): a coarse
+    complete-graph solve over the keyframes (every clip_size-th frame), then
+    one complete-graph solve per clip of clip_size + 1 frames, its first
+    frame anchored to the keyframe's coarse pose, depth and focal through
+    init_priors. Other keywords go to reconstruct_scene.
+
+    Returns (clip SceneResults, all_poses (n, 4, 4), all_depths (n, H, W))."""
+    n = imgs.shape[0]
+    keyframes = list(range(0, n, clip_size))
+    coarse = reconstruct_scene(imgs[keyframes], priors[keyframes], model,
+                               scene_graph="complete", niter=coarse_niter,
+                               lr=coarse_lr, **kw)
+    key_poses = coarse.get_im_poses()
+    key_focals = coarse.get_focals()
+    key_depths = coarse.get_depthmaps()
+
+    H, W = imgs.shape[1:3]
+    all_poses = np.zeros((n, 4, 4), np.float32)
+    all_depths = np.zeros((n, H, W), np.float32)
+    results = []
+    for ci, start in enumerate(keyframes):
+        clip = list(range(start, min(start + clip_size + 1, n)))
+        if len(clip) < 2:
+            all_poses[start] = key_poses[ci]
+            all_depths[start] = key_depths[ci]
+            continue
+        init_priors = (key_poses[ci], key_depths[ci], [key_focals[ci]])
+        res = reconstruct_scene(imgs[clip], priors[clip], model,
+                                scene_graph="complete", niter=niter, lr=lr,
+                                init_priors=init_priors, **kw)
+        results.append(res)
+        poses = res.get_im_poses()
+        depths = res.get_depthmaps()
+        take = len(clip) if clip[-1] == n - 1 else len(clip) - 1
+        for k in range(take):
+            all_poses[clip[k]] = poses[k]
+            all_depths[clip[k]] = depths[k]
+    return results, all_poses, all_depths

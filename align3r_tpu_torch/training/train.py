@@ -31,7 +31,7 @@ import torch
 
 from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
 from align3r_tpu_torch.models.config import (TINY_TEST, VIT_L_512, Align3RConfig,
-                                             parse_model_string)
+                                             model_string, parse_model_string)
 from align3r_tpu_torch.models.convert import load_torch_checkpoint
 from align3r_tpu_torch.training.data import get_data_loader
 from align3r_tpu_torch.training.step import (cast_frozen_kernels, make_eval_step,
@@ -91,10 +91,14 @@ def save_checkpoint(path, model, optimizer, step, epoch, best_so_far=None):
 
 
 def export_torch_checkpoint(path, model: Align3R):
-    """The reference checkpoint format, {"model": state_dict} in fp32: the
-    bf16-stored frozen kernels are upcast exactly."""
+    """The reference checkpoint format, {"model": state_dict} in fp32 (the
+    bf16-stored frozen kernels are upcast exactly), with "args" {"model":
+    the config's constructor string}, so that `load_torch_checkpoint`
+    rebuilds the config. args is a dict where the reference stores an
+    argparse.Namespace, so the file also loads with weights_only=True."""
     torch.save({"model": {k: v.detach().float().cpu()
-                          for k, v in model.state_dict().items()}}, path)
+                          for k, v in model.state_dict().items()},
+                "args": {"model": model_string(model.cfg)}}, path)
 
 
 def _config(expr: str) -> Align3RConfig:

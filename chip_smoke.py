@@ -39,7 +39,12 @@ final result line:
                 fc1 with GELU, fc2 with the residual; encoder and decoder
                 shapes) against gemm_plain, timed from a CUDA graph beside
                 torch.addmm (torch.baddbmm for two streams) on the same bf16
-                product.
+                product. Untimed, at the demo phase's shapes: K1/K2 at its
+                encoder chunks (12, 6, 3, 2 frames) and decoder batches (8
+                and the ragged tails 6, 4, 2), K3/K4 and K5 on the terms of
+                its five solves (12 frames swinstride-5 and complete, 6, 3
+                and 2 frames complete: e2 = 140, 264, 60, 12, 4), with the
+                same tolerances and same-bits checks.
   4. parity   - a small model, a small solve and the flow term (gate off) run
                 on the card and on the CPU, from the same seeded weights and
                 inputs; they must agree.
@@ -94,6 +99,24 @@ final result line:
                 under remat) and 28 K9 backwards (the encoder is frozen), 0
                 K6; finite losses, frozen weights bit-identical, trainable
                 ones moved, checkpoint-final.pth reloads strictly.
+ 10. demo     - the demo's serving entry, run after `heads`: 12 synthetic
+                1024x576 PNG frames with DepthPro-style `.npz` priors (the
+                port's own writer) and a seeded VIT_L_512 checkpoint
+                (export_torch_checkpoint) under build/demo, loaded once
+                (tools.demo.load_model, timed); then with those prepared
+                weights align3r_tpu_torch.tools.demo.main at --image_size 512
+                (512x288), --niter 300, as eval_pose (the full artifact set:
+                poses, intrinsics, focals, depth / conf / mask maps, frames,
+                scene.html, scene.glb) and as eval_pose_h --clip_size 5
+                (hierarchical: pred_traj.txt, depth_maps.npy); and one
+                variant="prior" reconstruct_scene with the priors' z channel
+                as mono_depths on the same frames (the depth tool's complete
+                graph, lr 0.05, cosine, conf clamp 10). Counters are zeroed
+                before each run: K1-K5 must launch in each; the artifacts
+                must all exist, the .glb header be valid with PNG textures,
+                trajectories and depths finite. Prints each stage's seconds
+                (weights, load, engine, init, solve, writers, hierarchical
+                total) and the card.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base), K8 (the head tail at the main path's shape, and fp32), both timed
 from a CUDA graph and split by launch beside the XLA-path chain, and K9
@@ -108,6 +131,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -120,6 +144,14 @@ FLOW_FRAMES = 12
 BATCH = 32
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
+DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
+# the demo phase's kernel shapes, checked (untimed) beside the main path's:
+# K1/K2 batches (the encoder's chunk of 12 frames, the hierarchical solve's 6,
+# 3 and 2; the decoder's batch of 8 and its ragged tails) and the solves'
+# graphs (eval_pose, the prior run, the hierarchical clips and coarse solve)
+DEMO_SITE_B = {"encoder": (12, 6, 3, 2), "decoder": (8, 6, 4, 2)}
+DEMO_GRAPHS = ((12, "swinstride-5-noncyclic"), (12, "complete"), (6, "complete"),
+               (3, "complete"), (2, "complete"))
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # dense TF32 tensor cores; an fp32-accurate product there is 3 TF32 products
@@ -298,8 +330,8 @@ def check_site_attention(dev, gen, name, rows, N, C, Hh):
 
 
 def check_sites(dev, gen):
-    """K1 and K2 against their plain versions at the main path's shapes.
-    Tolerance: 2 bf16 ulps at the output's largest magnitude (1.6e-2 x
+    """K1 and K2 against their plain versions at the main path's shapes,
+    and, untimed, at the demo phase's batches (DEMO_SITE_B). Tolerance: 2 bf16 ulps at the output's largest magnitude (1.6e-2 x
     max|plain|); the two sides round q, k, v, P and the output to bf16 at the
     same points but accumulate in a different order. Timed from a CUDA graph
     (device time; `_eager`: launched one by one). Beside the encoder's and
@@ -325,57 +357,63 @@ def check_sites(dev, gen):
         from align3r_tpu_torch.models.rope import make_grid_positions
         pos = make_grid_positions(H // 16, W // 16, device=dev)
         N = pos.shape[0]
-        x = rnd(G, Bn, N, C)
-        kv = rnd(G, Bn, N, C) if cross else x
         w = [rnd(G, C, C, scale=C ** -0.5) for _ in range(4)]
         b = [rnd(G, C, scale=0.1, dtype=torch.float32) for _ in range(4)]
         lnq = ln(G, C)
         lnkv = ln(G, C) if cross else "same"
         cos, sin = fs.site_tables(pos, C // Hh, 100.0, bf)
-        kern = lambda: fs.attention_site(x, kv, *w, *b, pos, Hh, 100.0,
-                                         ln_q=lnq, ln_kv=lnkv, residual=True)
-        plain = lambda: fs.site_plain(x, kv, *w, *b, cos, sin, Hh, ln_q=lnq,
-                                      ln_kv=lnkv, residual=True)
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err, rel, scale = max_err(out, ref)
-        ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
-        ms, ms_eager, pms = graph_time(kern, 10), cuda_time(kern, 10), cuda_time(plain, 3)
-        act = G * Bn * N * C * 2
-        nbytes = (act * (3 if cross else 2) + 4 * G * C * C * 2 + 4 * G * C * 4
-                  + (2 if cross else 1) * 2 * G * C * 4 + 2 * N * (C // Hh) * 2)
-        b_ms, b_by = bound(nbytes, 8 * G * Bn * N * C * C + 4 * G * Bn * N * N * C,
-                           PEAK_BF16)
-        rows.append(dict(kernel="K1", shape=f"{name} G={G} B={Bn} N={N} C={C} H={Hh}",
-                         max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
-                         bound_by=b_by))
-        del x, kv, w, out, ref
+        for Bs in (Bn, *DEMO_SITE_B[name.split()[0]]):
+            x = rnd(G, Bs, N, C)
+            kv = rnd(G, Bs, N, C) if cross else x
+            kern = lambda: fs.attention_site(x, kv, *w, *b, pos, Hh, 100.0,
+                                             ln_q=lnq, ln_kv=lnkv, residual=True)
+            plain = lambda: fs.site_plain(x, kv, *w, *b, cos, sin, Hh, ln_q=lnq,
+                                          ln_kv=lnkv, residual=True)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, rel, scale = max_err(out, ref)
+            ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
+            row = dict(kernel="K1", shape=f"{name} G={G} B={Bs} N={N} C={C} H={Hh}",
+                       max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale, ok=ok)
+            if Bs == Bn:   # the main path's shape: timed
+                act = G * Bn * N * C * 2
+                nbytes = (act * (3 if cross else 2) + 4 * G * C * C * 2 + 4 * G * C * 4
+                          + (2 if cross else 1) * 2 * G * C * 4 + 2 * N * (C // Hh) * 2)
+                b_ms, b_by = bound(nbytes, 8 * G * Bn * N * C * C + 4 * G * Bn * N * N * C,
+                                   PEAK_BF16)
+                row.update(ms=graph_time(kern, 10), ms_eager=cuda_time(kern, 10),
+                           plain_ms=cuda_time(plain, 3), bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            del x, kv, out, ref
+        del w
         if not cross:
             rows.append(check_site_attention(dev, gen, name, G * Bn, N, C, Hh))
     for name, G, Bn, C in (("encoder mlp", 1, 16, 1024), ("decoder mlp", 2, 32, 768)):
         N = pos.shape[0]
         F = 4 * C
-        x = rnd(G, Bn, N, C)
         w1, w2 = rnd(G, C, F, scale=C ** -0.5), rnd(G, F, C, scale=F ** -0.5)
         b1 = rnd(G, F, scale=0.1, dtype=torch.float32)
         b2 = rnd(G, C, scale=0.1, dtype=torch.float32)
         lnp = ln(G, C)
-        kern = lambda: fs.mlp_site(x, w1, b1, w2, b2, ln=lnp, residual=True)
-        plain = lambda: fs.mlp_plain(x, w1, b1, w2, b2, ln=lnp, residual=True)
-        out, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err, rel, scale = max_err(out, ref)
-        ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
-        ms, ms_eager, pms = graph_time(kern, 10), cuda_time(kern, 10), cuda_time(plain, 3)
-        nbytes = (2 * G * Bn * N * C * 2 + 2 * G * C * F * 2 + G * (F + C) * 4
-                  + 2 * G * C * 4)
-        b_ms, b_by = bound(nbytes, 4 * G * Bn * N * C * F, PEAK_BF16)
-        rows.append(dict(kernel="K2", shape=f"{name} G={G} B={Bn} N={N} C={C} F={F}",
-                         max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                         ok=ok, ms=ms, ms_eager=ms_eager, plain_ms=pms, bound_ms=b_ms,
-                         bound_by=b_by))
-        del x, w1, w2, out, ref
+        for Bs in (Bn, *DEMO_SITE_B[name.split()[0]]):
+            x = rnd(G, Bs, N, C)
+            kern = lambda: fs.mlp_site(x, w1, b1, w2, b2, ln=lnp, residual=True)
+            plain = lambda: fs.mlp_plain(x, w1, b1, w2, b2, ln=lnp, residual=True)
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err, rel, scale = max_err(out, ref)
+            ok = err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item()
+            row = dict(kernel="K2", shape=f"{name} G={G} B={Bs} N={N} C={C} F={F}",
+                       max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale, ok=ok)
+            if Bs == Bn:
+                nbytes = (2 * G * Bn * N * C * 2 + 2 * G * C * F * 2 + G * (F + C) * 4
+                          + 2 * G * C * 4)
+                b_ms, b_by = bound(nbytes, 4 * G * Bn * N * C * F, PEAK_BF16)
+                row.update(ms=graph_time(kern, 10), ms_eager=cuda_time(kern, 10),
+                           plain_ms=cuda_time(plain, 3), bound_ms=b_ms, bound_by=b_by)
+            rows.append(row)
+            del x, out, ref
+        del w1, w2
     rows += check_layernorm(dev, gen)
     return rows
 
@@ -498,24 +536,28 @@ def kernel_split(fn, reps: int, main: str) -> dict:
     return split
 
 
-def check_edge(dev, gen):
-    """K3/K4 against their plain versions at 24 frames (e2 = 380 terms,
-    A = 147,456), bf16 and fp32 storage. Tolerance: relative 1e-4 of the
-    largest value (fp32 arithmetic on both sides, sums in another order);
-    two launches must give the same bits. Timed from a CUDA graph with the
-    terms sorted by image, as the pack lays them out (ms; `ms_eager`: one by
-    one, CUDA events), and in the random order of the check (ms_unsorted,
-    from a graph); split by launch (the walk, the second pass) under
-    torch.profiler."""
+def check_edge(dev, gen, n=N_FRAMES, pairs=None):
+    """K3/K4 against their plain versions, bf16 and fp32 storage: at 24
+    frames (e2 = 380 terms of random images, A = 147,456), timed; or, given
+    a scene graph's `pairs` over `n` frames, untimed at its terms (e2 = 2
+    pairs, image i's then image j's, as the solve packs them). Tolerance:
+    relative 1e-4 of the largest value (fp32 arithmetic on both sides, sums
+    in another order); two launches must give the same bits. Timed from a
+    CUDA graph with the terms sorted by image, as the pack lays them out (ms;
+    `ms_eager`: one by one, CUDA events), and in the random order of the
+    check (ms_unsorted, from a graph); split by launch (the walk, the second
+    pass) under torch.profiler."""
     import torch
     from align3r_tpu_torch.ops import edge_loss as el
-    n, e2, A = N_FRAMES, 380, H * W
+    e2, A = (380 if pairs is None else 2 * len(pairs)), H * W
     rows = []
     for dt in (torch.bfloat16, torch.float32):
         proj = torch.randn(n, 3, A, generator=gen, device=dev)
         pred = torch.randn(e2, 3, A, generator=gen, device=dev).to(dt)
         w = (torch.rand(e2, A, generator=gen, device=dev) / (e2 * A)).to(dt)
-        idx = torch.randint(0, n, (e2,), generator=gen, device=dev, dtype=torch.int32)
+        idx = (torch.randint(0, n, (e2,), generator=gen, device=dev, dtype=torch.int32)
+               if pairs is None else torch.tensor([p[0] for p in pairs] + [p[1] for p in pairs],
+                                                  dtype=torch.int32, device=dev))
         pw34 = (torch.eye(3, 4, device=dev)[None]
                 + 0.1 * torch.randn(e2, 3, 4, generator=gen, device=dev)).contiguous()
         order, offsets = (t.to(dev) for t in el.term_csr(idx, n))
@@ -544,46 +586,59 @@ def check_edge(dev, gen):
         kf_s = lambda: el.edge_loss_fwd(proj, pw34, pred, w, idx_s, order_s, offsets_s)
         kb_s = lambda: el.edge_loss_bwd(g, proj, pw34, pred, w, idx_s, order_s, offsets_s)
         es = max_err(kf_s(), el.edge_loss_fwd_plain(proj, pw34, pred, w, idx_s))
-        rows.append(ratios(dict(
-            kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
-            max_abs_err=max(ef[0], es[0]), max_rel_err=max(ef[1], es[1]), tol=1e-4 * ef[2],
-            ok=ef[0] <= 1e-4 * ef[2] and es[0] <= 1e-4 * es[2] and same_f, same_bits=same_f,
-            ms=graph_time(kf_s, 20), ms_eager=cuda_time(kf_s, 20),
-            ms_unsorted=graph_time(kf, 20), split_ms=kernel_split(kf_s, 10, "edge_fwd"),
-            plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by)))
+        es_b = [max_err(a, b) for a, b in zip(kb_s(), el.edge_loss_bwd_plain(
+            g, proj, pw34, pred, w, idx_s))]
+        row = dict(kernel="K3", shape=f"{tag} e2={e2} A={A} n={n}",
+                   max_abs_err=max(ef[0], es[0]), max_rel_err=max(ef[1], es[1]),
+                   tol=1e-4 * ef[2], same_bits=same_f,
+                   ok=ef[0] <= 1e-4 * ef[2] and es[0] <= 1e-4 * es[2] and same_f)
+        if pairs is None:
+            row = ratios(dict(row, ms=graph_time(kf_s, 20), ms_eager=cuda_time(kf_s, 20),
+                              ms_unsorted=graph_time(kf, 20),
+                              split_ms=kernel_split(kf_s, 10, "edge_fwd"),
+                              plain_ms=cuda_time(pf, 3), bound_ms=b_ms, bound_by=b_by))
+        rows.append(row)
         e1, e2m = max_err(dpk, dpp), max_err(dmk, dmp)
-        # the forward's reads and g, plus dproj and dM written; about twice
-        # its work
-        b_ms, b_by = bound(fwd_bytes + 4 + n * 3 * A * 4 + e2 * 48, 60 * e2 * A, PEAK_FP32)
-        rows.append(ratios(dict(
-            kernel="K4", shape=f"{tag} e2={e2} A={A} n={n}", bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=max(e1[0], e2m[0]), max_rel_err=max(e1[1], e2m[1]),
-            tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
-            ok=e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2] and same_b,
-            same_bits=same_b, ms=graph_time(kb_s, 20), ms_eager=cuda_time(kb_s, 20),
-            ms_unsorted=graph_time(kb, 20), split_ms=kernel_split(kb_s, 10, "edge_bwd"),
-            plain_ms=cuda_time(pb, 3))))
+        row = dict(kernel="K4", shape=f"{tag} e2={e2} A={A} n={n}",
+                   max_abs_err=max(e1[0], e2m[0], *(e[0] for e in es_b)),
+                   max_rel_err=max(e1[1], e2m[1], *(e[1] for e in es_b)),
+                   tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g})",
+                   ok=(e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2] and same_b
+                       and all(e[0] <= 1e-4 * e[2] for e in es_b)),
+                   same_bits=same_b)
+        if pairs is None:
+            # the forward's reads and g, plus dproj and dM written; about
+            # twice its work
+            b_ms, b_by = bound(fwd_bytes + 4 + n * 3 * A * 4 + e2 * 48, 60 * e2 * A,
+                               PEAK_FP32)
+            row = ratios(dict(row, bound_ms=b_ms, bound_by=b_by, ms=graph_time(kb_s, 20),
+                              ms_eager=cuda_time(kb_s, 20), ms_unsorted=graph_time(kb, 20),
+                              split_ms=kernel_split(kb_s, 10, "edge_bwd"),
+                              plain_ms=cuda_time(pb, 3)))
+        rows.append(row)
         del proj, pred, w, dpk, dpp, dpk2
     return rows
 
 
-def check_k5(dev, gen):
-    """K5 against its plain version at 24 frames (E = 190 edges, e2 = 380
-    slots, A = 147,456), bf16 and fp32: the image-sorted perm of the
-    swinstride-5 graph with every 19th slot made a dummy (perm 0, valid 0).
-    Tolerance: bit-identical. Beside it, torch.index_select of the same rows
+def check_k5(dev, gen, n=N_FRAMES, graph="swinstride-5-noncyclic", timed=True):
+    """K5 against its plain version, bf16 and fp32, on the image-sorted perm
+    of `graph` over `n` frames: at 24 frames of the swinstride-5 graph (E =
+    190 edges, e2 = 380 slots, A = 147,456) with every 19th slot made a
+    dummy (perm 0, valid 0), timed; untimed at the demo phase's graphs with
+    the pack's own layout (every slot valid). Tolerance: bit-identical. Beside it, torch.index_select of the same rows
     of the stacked [i; j] packs (pred and w), the library call the port
     never makes."""
     import numpy as np
     import torch
     from align3r_tpu_torch.inference.pairs import make_pairs
     from align3r_tpu_torch.ops import edge_loss as el
-    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    pairs = make_pairs(n, graph, symmetrize=True)
     E, A = len(pairs), H * W
     idx = np.array([p[0] for p in pairs] + [p[1] for p in pairs])
     perm = np.argsort(idx, kind="stable").astype(np.int32)
     valid = np.ones(2 * E, np.int32)
-    valid[::19], perm[::19] = 0, 0
+    if timed:
+        valid[::19], perm[::19] = 0, 0
     perm_d, valid_d = (torch.from_numpy(a).to(dev) for a in (perm, valid))
     rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -601,11 +656,13 @@ def check_k5(dev, gen):
         isz = pk.element_size()
         # each slot's source rows read once and its rows written once
         b_ms, b_by = bound(2 * 2 * E * 4 * A * isz + 2 * 2 * E * 4, 2 * E * A, PEAK_FP32)
-        rows.append(dict(kernel="K5", shape=f"{'bf16' if dt == torch.bfloat16 else 'fp32'} "
-                         f"E={E} e2={2 * E} A={A}, {int((valid == 0).sum())} dummy slots",
-                         max_abs_err=err, max_rel_err=0.0 if ok else None, tol=0.0, ok=ok,
-                         ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
-                         library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by))
+        row = dict(kernel="K5", shape=f"{'bf16' if dt == torch.bfloat16 else 'fp32'} "
+                   f"n={n} E={E} e2={2 * E} A={A}, {int((valid == 0).sum())} dummy slots",
+                   max_abs_err=err, max_rel_err=0.0 if ok else None, tol=0.0, ok=ok)
+        if timed:
+            row.update(ms=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+                       library_ms=cuda_time(lib, 20), bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
         del pi, pj, wi, wj, pk, wk, pp, wp, p_cat, w_cat
     return rows
 
@@ -1485,6 +1542,162 @@ def heads_path(dev, pm, imgs, priors):
     return launches["pipeline"], stats
 
 
+# ---------------------------------------------------------------- phase 10
+
+def write_demo_inputs(root):
+    """DEMO_FRAMES smooth 1024x576 PNG frames, each with a DepthPro-style
+    prior (`<frame>_pred_depth_depthpro.npz`: depth and focallength_px),
+    written by the port's own PNG writer."""
+    import numpy as np
+    from align3r_tpu_torch.utils.png import write_png
+    rng = np.random.default_rng(3)
+    Hf, Wf = DEMO_HW
+    yy, xx = np.mgrid[0:Hf, 0:Wf].astype(np.float32)
+    for k in range(DEMO_FRAMES):
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        img = np.stack([np.sin(xx / (80 + 14 * c) + 0.15 * k + ph[c])
+                        * np.cos(yy / (60 + 10 * c) - 0.1 * k) for c in range(3)], -1)
+        img = 127.5 + 110 * img + 8 * rng.standard_normal(img.shape)
+        write_png(np.clip(img, 0, 255).astype(np.uint8), os.path.join(root, f"{k:05d}.png"))
+        depth = 2.0 + 0.5 * np.sin(xx / 120 + 0.1 * k) + 0.3 * np.cos(yy / 90)
+        np.savez(os.path.join(root, f"{k:05d}_pred_depth_depthpro.npz"),
+                 depth=depth.astype(np.float32), focallength_px=np.float32(1000.0))
+
+
+def demo_path(dev, card):
+    """The demo's serving entry (see the module docstring)."""
+    import shutil
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.models.config import VIT_L_512
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.inference.images import load_images, stack_views
+    from align3r_tpu_torch.pipeline import reconstruct_scene
+    from align3r_tpu_torch.tools import demo
+    from align3r_tpu_torch.training.train import export_torch_checkpoint
+
+    phase_t0 = time.perf_counter()
+    base = os.path.join(HERE, "build", "demo")
+    shutil.rmtree(base, ignore_errors=True)
+    frames = os.path.join(base, "frames")
+    os.makedirs(frames)
+    t0 = time.perf_counter()
+    write_demo_inputs(frames)
+    with torch.device(dev):
+        model = Align3R(VIT_L_512)
+    init_align3r_(model, seed=0)
+    with torch.no_grad():   # as the main phase: the prior branch counts, heads in range
+        gz = torch.Generator(device=dev).manual_seed(1)
+        for z in model.zero_convs:
+            z[0].weight.copy_(torch.randn(z[0].weight.shape, generator=gz, device=dev) * 0.02)
+        for h in (model.downstream_head1, model.downstream_head2):
+            h.dpt.head[4].weight.mul_(0.01)
+    ckpt = os.path.join(base, "vit_l_512_seed0.pth")
+    export_torch_checkpoint(ckpt, model)
+    del model
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    print(f"demo: {DEMO_FRAMES} frames {DEMO_HW[1]}x{DEMO_HW[0]} and a seeded VIT_L_512 "
+          f"checkpoint written in {setup_s:.1f} s", flush=True)
+
+    counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
+                el.permute_packed, fs.gemm)
+
+    def run(tag, fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        print(f"demo: {tag} launches {json.dumps(launches)}", flush=True)
+        return out, launches
+
+    # the weights are loaded once, as a user's run loads them, and the
+    # prepared model serves both modes and the prior run
+    t0 = time.perf_counter()
+    pm = demo.load_model(ckpt, 512, dev)
+    torch.cuda.synchronize()
+    weights_s = time.perf_counter() - t0
+    argv = ["--weights", ckpt, "--input_dir", frames, "--image_size", "512",
+            "--niter", "300", "--seq_name", "synthetic", "--silent"]
+    runs, launches, checks = {}, {}, {}
+    for mode in ("eval_pose", "eval_pose_h"):
+        out = os.path.join(base, mode)
+        runs[mode], launches[mode] = run(mode, lambda: demo.main(
+            argv + ["--output_dir", out, "--mode", mode, "--clip_size", "5"], model=pm))
+    seq = runs["eval_pose"]["out_dir"]
+    names = set(os.listdir(seq))
+    want = {"pred_traj.txt", "pred_intrinsics.txt", "pred_focals.txt", "scene.html",
+            "scene.glb"} | {f"frame_{i:04d}.{e}" for i in range(DEMO_FRAMES) for e in ("npy", "png")} \
+        | {f"conf_{i}.npy" for i in range(DEMO_FRAMES)} \
+        | {f"dynamic_mask_{i}.png" for i in range(DEMO_FRAMES)}
+    checks["artifacts"] = want <= names
+    raw = open(os.path.join(seq, "scene.glb"), "rb").read()
+    magic, ver, total = struct.unpack_from("<4sII", raw, 0)
+    jlen, jtag = struct.unpack_from("<I4s", raw, 12)
+    gltf = json.loads(raw[20:20 + jlen])
+    checks["glb_header"] = (magic == b"glTF" and ver == 2 and total == len(raw)
+                            and jtag == b"JSON"
+                            and [im["mimeType"] for im in gltf["images"]]
+                            == ["image/png"] * DEMO_FRAMES)
+    checks["html"] = "[-f[0], -f[1], -f[2], tz]" in open(os.path.join(seq, "scene.html")).read()
+    traj = np.loadtxt(os.path.join(seq, "pred_traj.txt"))
+    depths = np.stack([np.load(os.path.join(seq, f"frame_{i:04d}.npy"))
+                       for i in range(DEMO_FRAMES)])
+    checks["eval_pose_finite"] = (traj.shape == (DEMO_FRAMES, 8) and bool(np.isfinite(traj).all())
+                                  and depths.shape == (DEMO_FRAMES, H, W)
+                                  and bool(np.isfinite(depths).all() and (depths > 0).all()))
+    hseq = runs["eval_pose_h"]["out_dir"]
+    htraj = np.loadtxt(os.path.join(hseq, "pred_traj.txt"))
+    hdepths = np.load(os.path.join(hseq, "depth_maps.npy"))
+    checks["eval_pose_h_finite"] = (htraj.shape == (DEMO_FRAMES, 8)
+                                    and bool(np.isfinite(htraj).all())
+                                    and hdepths.shape == (DEMO_FRAMES, H, W)
+                                    and bool(np.isfinite(hdepths).all()))
+
+    # the depth tool's prior variant (tool/depth_test.py:204-216) on the same
+    # frames: the prior's z channel as frozen mono depth, complete graph
+    t0 = time.perf_counter()
+    stacked = stack_views(load_images(frames, 512, traj_format="default"))
+    load_s = time.perf_counter() - t0
+    n = stacked["imgs"].shape[0]
+    mono = stacked["priors"][..., 2].reshape(n, -1)
+    prior, launches["prior"] = run("prior", lambda: reconstruct_scene(
+        stacked["imgs"], stacked["priors"], pm, scene_graph="complete", variant="prior",
+        mono_depths=mono, niter=300, lr=0.05, schedule="cosine", batch_size=8,
+        conf_clamp=10.0, scene_kw=dict(min_conf_thr=1.1)))
+    del pm
+    checks["prior_finite"] = (prior.cfg.if_use_mono and prior.losses.shape == (300,)
+                              and bool(np.isfinite(prior.losses).all())
+                              and all(np.isfinite(a).all() for a in (
+                                  prior.get_im_poses(), prior.get_focals(),
+                                  prior.get_depthmaps())))
+    checks["k1_k5_launched"] = all(v > 0 for ln in launches.values() for v in ln.values())
+    t = runs["eval_pose"]["timings"]
+    th = runs["eval_pose_h"]["timings"]
+    stats = {"frames": DEMO_FRAMES, "frame_hw": DEMO_HW, "image_hw": [H, W],
+             "setup_s": setup_s,
+             "weights_s": weights_s,
+             "eval_pose": {"load_s": t["frames_s"],
+                           "engine_s": t["inference_s"], "init_s": t["init_s"],
+                           "solve_s": t["solve_s"], "writers_s": t["writers_s"],
+                           "reconstruct_s": t["reconstruct_s"]},
+             "eval_pose_h": {"load_s": th["frames_s"],
+                             "hierarchical_s": th["reconstruct_s"],
+                             "clips": {k: v for k, v in th.items() if k.startswith("clips_")},
+                             "writers_s": th["writers_s"]},
+             "prior": {"load_s": load_s, **prior.timings},
+             "launches": launches, "card": card,
+             "phase_s": time.perf_counter() - phase_t0}
+    print(f"demo: checks {json.dumps(checks)}", flush=True)
+    print(f"demo: stage seconds {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"demo checks failed: {checks}")
+    return stats
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "align3r_tpu_torch")):
         return fail("setup", "align3r_tpu_torch/ is not beside chip_smoke.py: "
@@ -1544,9 +1757,13 @@ def main() -> int:
                                f"without HGMMA: {[k for k, n in attn_sass.items() if not n]}")
 
         phase = "kernels"
+        from align3r_tpu_torch.inference.pairs import make_pairs
         gen = torch.Generator(device=dev).manual_seed(0)
         rows = (check_sites(dev, gen) + check_gemms(dev, gen) + check_edge(dev, gen)
+                + [r for n, g in DEMO_GRAPHS for r in check_edge(
+                    dev, gen, n, make_pairs(n, g, symmetrize=True))]
                 + check_k5(dev, gen)
+                + [r for n, g in DEMO_GRAPHS for r in check_k5(dev, gen, n, g, timed=False)]
                 + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen))
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
@@ -1570,6 +1787,10 @@ def main() -> int:
         phase = "heads"
         heads_launches, heads_stats = heads_path(dev, pm, imgs, priors)
         del pm
+        torch.cuda.empty_cache()
+
+        phase = "demo"
+        demo_stats = demo_path(dev, card)
         torch.cuda.empty_cache()
 
         phase = "train"
@@ -1656,7 +1877,7 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
                       "train_path": train_stats, "heads_path": heads_stats,
-                      "long_path": long_stats}), flush=True)
+                      "demo_path": demo_stats, "long_path": long_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

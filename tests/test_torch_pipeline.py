@@ -201,7 +201,8 @@ def test_flow_savers(tmp_path):
 
 
 def test_sam2_refinement_raises():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    """SAM2 is not ported: the error points to ROADMAP's SAM2 item by name."""
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, the "SAM2" item'):
         tpipe.reconstruct_scene(np.zeros((2, 32, 32, 3), np.float32),
                                 np.zeros((2, 32, 32, 3), np.float32), None,
                                 sam2_mask_refine=True)

@@ -133,6 +133,68 @@ def test_fast_pnp_matches_cv2(sweep):
     assert cv2.__version__   # the oracle is OpenCV's solver
 
 
+def _degenerate_output():
+    """Two 288x512 views whose pointmaps are noise about 3e-4 from the
+    camera, as random network weights give. Weiszfeld's focal for view 1 sits
+    at the 1e-4 clamp, where every point projects to the principal point
+    whatever the pose. Edge (0, 1) is the MST's root, so mst_init poses view 1
+    by PnP on the seeded cloud `c1`, whose inliers' DLT puts the camera 1.4e5
+    away (1e27 on a random ViT-L run of the demo: an inf loss)."""
+    h, w = 288, 512
+    cloud = lambda seed: (np.random.default_rng(seed).standard_normal((h, w, 3))
+                          * [1.6e-4, 1.8e-4, 1.1e-4]
+                          + [-1.9e-4, -1.8e-4, -3.0e-4]).astype(np.float32)
+    c0, c1 = cloud(4), cloud(3)
+    conf = np.stack([np.full((h, w), 3.0), np.full((h, w), 1.5)]).astype(np.float32)
+    return {"view1": {"idx": np.array([0, 1])}, "view2": {"idx": np.array([1, 0])},
+            "pred1": {"pts3d": np.stack([c0, c1]), "conf": conf},
+            "pred2": {"pts3d_in_other_view": np.stack([c1, c0]), "conf": conf}}
+
+
+def _degenerate_solve(out, niter=10):
+    """The port's mst_init and a short solve on `out`: (im_poses, losses)."""
+    cfg, data, params = ts.build_scene(out, SCENE_KW)
+    params = tinit.mst_init(params, data, cfg, out["pred1"]["conf"], out["pred2"]["conf"])
+    poses = ts.get_im_poses(params).numpy()
+    _, losses = ts.global_alignment_loop(params, ts.default_masks(cfg, params), data, cfg,
+                                         lr=0.05, niter=niter, schedule="cosine")
+    return poses, np.asarray(losses)
+
+
+def test_fast_pnp_stays_bounded_at_a_degenerate_focal():
+    """On the degenerate-focal scene (_degenerate_output) the port keeps a
+    camera as near the points as JAX's cv2.solvePnPRansac (SQPNP) does:
+    within 10x of the larger of cv2's translation and the points' extent
+    (the inliers' DLT alone gives 1.4e5, 1e8x the extent), and the solve's
+    loss curve stays finite. JAX's poses on the same input are finite."""
+    out = _degenerate_output()
+    assert tinit.estimate_focal_weiszfeld(out["pred1"]["pts3d"][1]) == pytest.approx(1e-4)
+    jcfg, jdata, jparams = js.build_scene(_jax_out(out), SCENE_KW)
+    jparams = jinit.mst_init(jparams, jdata, jcfg, out["pred1"]["conf"], out["pred2"]["conf"])
+    ref = np.asarray(js.get_im_poses(jparams))
+    got, losses = _degenerate_solve(out)
+    assert np.isfinite(ref).all()
+    extent = max(np.abs(ref[:, :3, 3]).max(), np.abs(out["pred1"]["pts3d"]).max())
+    assert np.isfinite(got).all() and np.abs(got[:, :3, 3]).max() <= 10 * extent
+    assert losses.shape == (10,) and np.isfinite(losses).all()
+
+
+def test_fast_pnp_gives_no_pose_without_a_bounded_one(monkeypatch):
+    """When neither the inliers' refit nor the RANSAC hypothesis has a
+    bounded translation, fast_pnp gives no pose at that focal (None here,
+    one focal), and mst_init keeps view 1 at the identity pose: the solve
+    stays finite."""
+    refine = tinit._refine_pose
+    monkeypatch.setattr(tinit, "_refine_pose",
+                        lambda *a, **k: (lambda R, t: (R, t + 1e30))(*refine(*a, **k)))
+    out = _degenerate_output()
+    msk = np.ones(out["pred1"]["pts3d"].shape[1:3], bool)
+    assert tinit.fast_pnp(out["pred1"]["pts3d"][1], 1e-4, msk) is None
+    poses, losses = _degenerate_solve(out)
+    np.testing.assert_array_equal(poses[1], np.eye(4, dtype=np.float32))
+    assert np.isfinite(losses).all()
+
+
 def test_adam_update_matches_optax():
     r = np.random.default_rng(3)
     params = {"a": r.standard_normal((4, 3)).astype(np.float32),
