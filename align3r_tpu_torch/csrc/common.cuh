@@ -29,23 +29,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
-__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gptr,
-                                           int src_bytes) {
-  // 16-byte async copy global -> shared; src_bytes = 0 zero-fills the slot
-  unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-               "l"(gptr), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

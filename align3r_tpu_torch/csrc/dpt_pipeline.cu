@@ -46,10 +46,24 @@
 //   EPI_HEAD   relu(acc + b) w3 + b3 in fp32, the 1 x 1 conv over the
 //              tile's 128 channels: each thread's 32 columns, then two quad
 //              shuffles; w3 and b3 sit in shared memory   (K8 conv 2)
-// fp32 (no path runs it): conv3x3_fp32, an FMA kernel without tensor cores, 128 x 128 tiles
-// with a K step of 32 channels on a two-stage cp.async ring, 8 x 8 outputs a
-// thread, the operand ReLU on each landed chunk, the same epilogues through
-// an fp32 tile in shared memory.
+// fp32 (the heads at head_dtype fp32): conv_tf32_sm90<EPI>, the same walk,
+// boxes and zero fill with fp32 operands on the tensor cores at fp32
+// accuracy by 3xTF32 (x = hi + lo, hi = tf32(x), lo = tf32(x - hi); a
+// product is a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32, about 2^-21 of its
+// magnitude: the fp32 policy of sm90_attention_tf32.cuh):
+//   - A's k-tile is a box of 32 fp32 channels (one 128-byte swizzle row),
+//     72 k-tiles at Cin = 256. TF32 wgmma has no transpose bit, so W is K-
+//     major: the wrapper splits the taps once a call into hi and lo (2, Cout,
+//     9 Cin), each 32-channel block in the order of the A fragments below.
+//   - A is read from the landed stage into registers (wgmma's A-from-
+//     registers form): the operand ReLU and the split happen there, and the
+//     stage is read once, where a split copy in shared memory would be read
+//     by three products and written once more (about 160 bytes a clock of
+//     the SM's 128 against about 106 this way).
+//   - Epilogues in fp32 (the roundings are the identity): acc + b, relu(acc
+//     + b), v + (acc + b) [+ base], and EPI_HEAD as in bf16; stored from
+//     registers (float2 a thread, whole 32-byte sectors a quad): a staged
+//     fp32 tile would take 64 KB of the ring's shared memory.
 // The upsample (upsample2x_kernel) moves 16 bytes of channels a thread:
 // each output reads its two row and two column taps directly, with
 // _interp_matrix's weights.
@@ -57,7 +71,8 @@
 // What bounds them on the H100: operations. A K7 unit at the 72 x 128 level
 // of a 32-pair decode batch is 2 x 2 x 294,912 x 9 x 256 x 256 = 0.70 TFLOP
 // against about 60 MB of activations and weights: 0.70 ms of bf16 tensor-core
-// time against 0.02 ms of memory. K8 at (32, 144, 256, 256) is 2.1 TFLOP; its
+// time against 0.02 ms of memory; in fp32 three TF32 products each, 4.2 ms
+// at 494.7 TFLOP/s. K8 at (32, 144, 256, 256) is 2.1 TFLOP; its
 // upsample alone is bytes-bound (0.30 GB read, 1.21 GB written). The TPU
 // kernels keep K7's intermediate and K8's h1 / h2 in VMEM; here they go
 // through device memory.
@@ -96,24 +111,29 @@ inline int conv_box_w(int W) {
 
 // ------------------------------------------------- bf16: the GEMM core's policy
 
+// Tile t of the walk: N fastest, then along W, H and B, so that a tile's 3x3
+// halo was read by its neighbours moments before and is still in L2
+struct ConvTile { int b, h0, w0, n0; };
+__device__ __forceinline__ ConvTile conv_tile(const ConvArgs& p, int t) {
+  ConvTile r;
+  r.n0 = (t % p.nn) * GBN;
+  t /= p.nn;
+  r.w0 = (t % p.nw) << p.bwl;
+  t /= p.nw;
+  r.h0 = (t % p.nh) * p.bh;
+  r.b = t / p.nh;
+  return r;
+}
+
 template <int EPI>
 struct ConvPolicy {
   static constexpr bool RELU_A = EPI == EPI_RELU, TMA_STORE = EPI != EPI_HEAD,
                         C_PASS = EPI == EPI_RESID;
-  struct Tile { int b, h0, w0, n0; };
+  using Tile = ConvTile;
   struct Walk {
     const ConvArgs& p;
     int tiles, nk;
-    __device__ __forceinline__ Tile at(int t) const {
-      Tile r;
-      r.n0 = (t % p.nn) * GBN;
-      t /= p.nn;
-      r.w0 = (t % p.nw) << p.bwl;
-      t /= p.nw;
-      r.h0 = (t % p.nh) * p.bh;
-      r.b = t / p.nh;
-      return r;
-    }
+    __device__ __forceinline__ Tile at(int t) const { return conv_tile(p, t); }
   };
   using Rows = Tile;
   ConvArgs p;
@@ -261,20 +281,21 @@ conv_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtens
   gemm_core(&ta, &tw, &tc, ConvPolicy<EPI>{p});
 }
 
-// The map of a contiguous NHWC bf16 tensor (B, H, W, C) as (C, W, H, B):
-// boxes of 64 channels x bw x bh pixels of one image, 128-byte swizzle;
-// elements outside the image are zero-filled on a load and not written on a
-// store.
+// The map of a contiguous NHWC tensor (B, H, W, C), bf16 or fp32, as (C, W,
+// H, B): boxes of one 128-byte swizzle row of channels (64 bf16, 32 fp32) x
+// bw x bh pixels of one image; elements outside the image are zero-filled on
+// a load and not written on a store.
 inline bool nhwc_map(CUtensorMap* map, const void* ptr, int B, int H, int W, int C, int bw,
-                     int bh) {
+                     int bh, bool is_bf16 = true) {
   const sm90::EncodeTiled fn = sm90::encoder();
   if (fn == nullptr) return false;
+  const cuuint64_t sz = is_bf16 ? 2 : 4;
   const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  const cuuint64_t strides[3] = {C * sz, W * C * sz, H * W * C * sz};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / sz), (cuuint32_t)bw, (cuuint32_t)bh, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+  return fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+            const_cast<void*>(ptr), dims, strides, box,
             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -299,159 +320,269 @@ cudaError_t launch_conv_sm90(const ConvArgs& p, long long tiles, cudaStream_t st
   return cudaGetLastError();
 }
 
-// ------------------------------------------------- fp32: FMA
+// ------------------------------------------------- fp32: 3xTF32 on wgmma
 
-constexpr int BM = 128, BN = 128, BKC = 32;   // pixels, output channels, K step
-constexpr int FMA_THREADS = 256;
+constexpr int TBK = 32;            // fp32 channels of a k-tile: one 128-byte swizzle row
+constexpr int TSTAGES = 4;         // depth of the (A, W hi, W lo) ring
+constexpr int TF32_THREADS = 384;  // two consumer warpgroups, then the producer's
 
-struct FmaLayout {
-  static constexpr int LDA = BKC + 4;   // A tile rows, 2 stages
-  static constexpr int LDB = BN + 4;    // B tile rows, 2 stages
-  static constexpr int LDC = BN + 4;    // staged accumulator
-  static constexpr int A_FLOATS = 2 * BM * LDA;
-  static constexpr int AB = (A_FLOATS + 2 * BKC * LDB) * 4;
-  static constexpr int C = BM * LDC * 4;
-  static constexpr int BYTES = AB > C ? AB : C;
+struct Tf32Smem {
+  static constexpr int AB = GBM * TBK * 4;    // A: 128 pixels x 32 channels, 128-byte rows
+  static constexpr int WB = GBN * TBK * 4;    // W hi or lo: 128 output channels x 32 k
+  static constexpr int STAGE = AB + 2 * WB;
+  static constexpr int W3 = TSTAGES * STAGE;  // EPI_HEAD: w3 (GBN, C3P), b3 at GBN MAX_C3
+  static constexpr int BAR = W3 + (GBN + 1) * MAX_C3 * 4;   // full, empty [TSTAGES]
+  static constexpr int BYTES = BAR + 2 * TSTAGES * 8 + 1024;   // + the base's alignment
+  static_assert(AB % 1024 == 0 && WB % 1024 == 0, "tiles must keep 1024-byte alignment");
+  static_assert(BYTES <= 232448, "the ring exceeds shared memory");
 };
 
-// thread (ty, tx) of 16 x 16 owns the outputs of rows ty * 8.., columns tx * 8..
-template <int EPI, bool RELU>
-__global__ void __launch_bounds__(FMA_THREADS) conv3x3_fp32(ConvArgs p) {
-  using Lay = FmaLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + Lay::A_FLOATS;
-  float* Cs = reinterpret_cast<float*>(smem);
-  const float* x = static_cast<const float*>(p.x);
-  const float* w = static_cast<const float*>(p.w);
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int M = p.B * H * W;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  constexpr int ACPR = BKC / 4;                 // 16-byte A chunks per row
-  constexpr int AN = BM * ACPR / FMA_THREADS;   // A chunks per thread
-  constexpr int BCPR = BN / 4;                  // B chunks per row
-  constexpr int BNC = BKC * BCPR / FMA_THREADS;
-  // the pixel of each of this thread's A chunks, fixed over the K loop
-  int pb[AN], ph[AN], pw[AN];
-  bool pm[AN];
+// TF32 A fragments (hi, lo) of the two k8 slices 2 pp, 2 pp + 1 from x0 and
+// x1, one 16-byte chunk of this thread's rows r and r + 8: slice kk's k = q
+// and q + 4 are channels 8 q + 2 kk and 8 q + 2 kk + 1 (the order the
+// wrapper gave W's k rows, tf32_taps in ops/dpt_pipeline.py)
+template <bool RELU>
+__device__ __forceinline__ void tf32_frags(float4 x0, float4 x1, uint32_t (&hi)[2][4],
+                                           uint32_t (&lo)[2][4]) {
+  const float v[2][4] = {{x0.x, x1.x, x0.y, x1.y}, {x0.z, x1.z, x0.w, x1.w}};
 #pragma unroll
-  for (int i = 0; i < AN; ++i) {
-    const int r = (tid + i * FMA_THREADS) / ACPR, m = m0 + r;
-    pm[i] = m < M;
-    const int mm = pm[i] ? m : 0;
-    pw[i] = mm % W;
-    ph[i] = (mm / W) % H;
-    pb[i] = mm / (W * H);
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float y = RELU ? fmaxf(v[j][a], 0.f) : v[j][a];
+      const float h = sm90::tf32_rna(y);
+      hi[j][a] = __float_as_uint(h);
+      lo[j][a] = __float_as_uint(sm90::tf32_rna(y - h));
+    }
+}
+
+// K7/K8's fp32 3x3 convs: ConvPolicy's walk, box and zero fill with fp32
+// operands, each product 3xTF32 on the tensor cores. Persistent: one block an
+// SM walks the tiles in conv_tile order. The producer warpgroup's first
+// thread keeps a ring of TSTAGES stages in flight by TMA: A's tap-shifted box
+// of 32 channels, and W's hi and lo (Cout, 9 Cin) k-tiles. The two consumer
+// warpgroups share each 128 x 128 tile, rows 64 wg.. each (64 fp32
+// accumulators a thread). A consumer reads its A fragments from the landed
+// stage (two 16-byte loads a k-tile per row; the channel order above makes
+// them conflict-free through the swizzle), applies the operand ReLU, splits
+// each value in registers and runs a_lo W_hi + a_hi W_lo + a_hi W_hi
+// (wgmma.m64n128k8 tf32, A from registers, W K-major); one half k-tile's
+// products stay in flight while the next half's fragments are made. The
+// epilogue runs on the accumulators and stores fp32 from registers.
+template <int EPI>
+__global__ void __launch_bounds__(TF32_THREADS, 1)
+conv_tf32_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
+               const ConvArgs p) {
+  using namespace sm90;
+  using L = Tf32Smem;
+  constexpr int S = TSTAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = gemm_smem_base(smem_raw);
+  unsigned char* smem = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t full = base + L::BAR, empty = full + 8 * S;
+  const int tid = threadIdx.x, nk = p.nk;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);   // the two consumers' eight warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int kc = Cin / BKC, nk = 9 * kc;
-
-  auto a_chunk = [&](int stage, int i) {
-    const int c = tid + i * FMA_THREADS;
-    return As + stage * BM * Lay::LDA + (c / ACPR) * Lay::LDA + (c % ACPR) * 4;
-  };
-  auto load = [&](int stage, int kt) {
-    const int tap = kt / kc, ci0 = (kt - tap * kc) * BKC;
-    const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-#pragma unroll
-    for (int i = 0; i < AN; ++i) {
-      const int hh = ph[i] + dh, ww = pw[i] + dw;
-      const bool ok = pm[i] && hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const int cc = ((tid + i * FMA_THREADS) % ACPR) * 4;
-      const float* src = ok ? x + (((size_t)pb[i] * H + hh) * W + ww) * Cin + ci0 + cc : x;
-      cp_async16(a_chunk(stage, i), src, ok ? 16 : 0);
-    }
-    float* bs = Bs + stage * BKC * Lay::LDB;
-#pragma unroll
-    for (int i = 0; i < BNC; ++i) {
-      const int c = tid + i * FMA_THREADS, r = c / BCPR, nc = (c % BCPR) * 4;
-      cp_async16(bs + r * Lay::LDB + nc, w + ((size_t)tap * Cin + ci0 + r) * Cout + n0 + nc, 16);
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    if constexpr (RELU) {
-      // this thread's own chunks of the stage have landed: relu them in place
-#pragma unroll
-      for (int i = 0; i < AN; ++i) {
-        float* e = a_chunk(kt & 1, i);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) e[j] = fmaxf(e[j], 0.f);
-      }
-    }
-    __syncthreads();
-    const float* as = As + (kt & 1) * BM * Lay::LDA;
-    const float* bs = Bs + (kt & 1) * BKC * Lay::LDB;
-    for (int kk = 0; kk < BKC; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = as[(ty * 8 + i) * Lay::LDA + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = bs[kk * Lay::LDB + tx * 8 + j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Cs[(ty * 8 + i) * Lay::LDC + tx * 8 + j] = acc[i][j];
-  __syncthreads();
-
+  float* w3s = reinterpret_cast<float*>(smem + L::W3);
+  const int C3 = p.C3, C3P = (C3 + 3) & ~3;
   if constexpr (EPI == EPI_HEAD) {
-    // Cout == BN: the whole channel row of each pixel is in this tile
-    float* out = static_cast<float*>(p.out);
-    const int C3 = p.C3;
-    for (int e = tid; e < BM * C3; e += FMA_THREADS) {
-      const int r = e / C3, j = e - r * C3, m = m0 + r;
-      if (m >= M) continue;
-      float s = 0.f;
-      for (int c = 0; c < BN; ++c)
-        s = fmaf(fmaxf(Cs[r * Lay::LDC + c] + p.bias[c], 0.f), p.w3[c * C3 + j], s);
-      out[(size_t)m * C3 + j] = s + p.b3[j];
+    for (int e = tid; e < GBN * C3P; e += blockDim.x) {
+      const int r = e / C3P, o = e - r * C3P;
+      w3s[e] = o < C3 ? p.w3[r * C3 + o] : 0.f;
     }
-  } else {
-    float* out = static_cast<float*>(p.out);
-    const float* resid = static_cast<const float*>(p.resid);
-    const float* base = static_cast<const float*>(p.base);
-    for (int e = tid; e < BM * BN; e += FMA_THREADS) {
-      const int r = e / BN, c = e - r * BN, m = m0 + r, n = n0 + c;
-      if (m >= M) continue;
-      const size_t o = (size_t)m * Cout + n;
-      float a = Cs[r * Lay::LDC + c] + p.bias[n];
-      if constexpr (EPI == EPI_RELU) a = fmaxf(a, 0.f);
-      if constexpr (EPI == EPI_RESID) {
-        a = resid[o] + a;
-        if (base != nullptr) a = a + base[o];
+    for (int o = tid; o < MAX_C3; o += blockDim.x) w3s[GBN * MAX_C3 + o] = o < C3 ? p.b3[o] : 0.f;
+  }
+  __syncthreads();
+
+  if (tid >= 256) {   // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<GEMM_PRODUCER_REGS>();
+    if (tid == 256) {
+      const int kc = p.Cin / TBK;
+      int it = 0;   // k-tiles issued, over all of this block's tiles
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        const ConvTile tile = conv_tile(p, t);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % S, tap = kt / kc, c0 = (kt - tap * kc) * TBK;
+          const int dh = tap / 3, dw = tap - 3 * dh;
+          if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
+          const uint32_t bar = full + 8 * s, sa = base + s * L::STAGE;
+          mbar_expect_tx(bar, L::STAGE);
+          tma_load_4d(sa, &ta, bar, c0, tile.w0 + dw - 1, tile.h0 + dh - 1, tile.b);
+          tma_load(sa + L::AB, &tw, bar, kt * TBK, tile.n0, 0);
+          tma_load(sa + L::AB + L::WB, &tw, bar, kt * TBK, tile.n0, 1);
+        }
       }
-      out[o] = a;
+    }
+    return;
+  }
+
+  setmaxnreg_inc<GEMM_CONSUMER_REGS>();
+  const int warp = tid >> 5, lane = tid & 31, q = lane & 3, c = 2 * q;
+  const int r0 = 64 * (warp >> 2) + 16 * (warp & 3) + (lane >> 2);   // tile rows r0, r0 + 8
+  // chunk 2 q + pp of row r lies at chunk (2 q + pp) ^ (r % 8) (the 128-byte swizzle)
+  const int off0 = r0 * 128 + (((2 * q) ^ (r0 & 7)) << 4);
+  const int off1 = r0 * 128 + (((2 * q + 1) ^ (r0 & 7)) << 4);
+  int it = 0;   // k-tiles consumed, over all of this block's tiles
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    float acc[GBN / 2];
+#pragma unroll
+    for (int e = 0; e < GBN / 2; ++e) acc[e] = 0.f;
+    uint32_t h0[2][4], l0[2][4], h1[2][4], l1[2][4];   // the k-tile's two halves
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % S;
+      const uint32_t sw = base + s * L::STAGE + L::AB;   // W hi; W lo WB on
+      const unsigned char* sa = smem + s * L::STAGE;
+      mbar_wait(full + 8 * s, (it / S) & 1);
+      // slices 0 and 1 (channels 8 q + 0..3), then the previous k-tile's
+      // products are done: hand its stage back
+      tf32_frags<EPI == EPI_RELU>(*reinterpret_cast<const float4*>(sa + off0),
+                                  *reinterpret_cast<const float4*>(sa + off0 + 8 * 128), h0, l0);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t bh = make_desc(sw + 32 * j, 16, 1024, 1);
+        const uint64_t bl = make_desc(sw + L::WB + 32 * j, 16, 1024, 1);
+        WgmmaTf32<GBN>::rs(acc, l0[j], bh);
+        WgmmaTf32<GBN>::rs(acc, h0[j], bl);
+        WgmmaTf32<GBN>::rs(acc, h0[j], bh);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));
+      // slices 2 and 3 (channels 8 q + 4..7)
+      tf32_frags<EPI == EPI_RELU>(*reinterpret_cast<const float4*>(sa + off1),
+                                  *reinterpret_cast<const float4*>(sa + off1 + 8 * 128), h1, l1);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t bh = make_desc(sw + 32 * (2 + j), 16, 1024, 1);
+        const uint64_t bl = make_desc(sw + L::WB + 32 * (2 + j), 16, 1024, 1);
+        WgmmaTf32<GBN>::rs(acc, l1[j], bh);
+        WgmmaTf32<GBN>::rs(acc, h1[j], bl);
+        WgmmaTf32<GBN>::rs(acc, h1[j], bh);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+    pin(acc);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % S));   // the tile's last stage
+
+    // epilogue: acc[4 j + 2 h + e] is tile row r0 + 8 h, column n0 + 8 j + c +
+    // e; row r is pixel (h0 + r / BW, w0 + r % BW), stored where it lies in
+    // the image. fp32 adds in conv3x3_plain's order.
+    const ConvTile tile = conv_tile(p, t);
+    const float* bias = p.bias + tile.n0 + c;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int hh = tile.h0 + (r >> p.bwl), ww = tile.w0 + (r & ((1 << p.bwl) - 1));
+      const bool in = hh < p.H && ww < p.W;
+      const size_t pix = ((size_t)tile.b * p.H + hh) * p.W + ww;
+#pragma unroll
+      for (int j = 0; j < GBN / 8; ++j) {
+        const float2 b = *reinterpret_cast<const float2*>(bias + 8 * j);
+        acc[4 * j + 2 * h] += b.x;
+        acc[4 * j + 2 * h + 1] += b.y;
+        if constexpr (EPI == EPI_RELU || EPI == EPI_HEAD) {
+          acc[4 * j + 2 * h] = fmaxf(acc[4 * j + 2 * h], 0.f);
+          acc[4 * j + 2 * h + 1] = fmaxf(acc[4 * j + 2 * h + 1], 0.f);
+        }
+      }
+      if constexpr (EPI == EPI_HEAD) {
+        // out[pix, o] = b3[o] + sum_k relu(a[k]) w3[k, o] over the tile's 128
+        // channels (Cout == GBN): this thread's 32, then the quad's
+        float* out = static_cast<float*>(p.out) + pix * C3;
+        for (int o0 = 0; o0 < C3; o0 += 4) {
+          float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < GBN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = acc[4 * j + 2 * h + e];
+              const float4 w = *reinterpret_cast<const float4*>(w3s + (8 * j + c + e) * C3P + o0);
+              s4[0] = fmaf(v, w.x, s4[0]);
+              s4[1] = fmaf(v, w.y, s4[1]);
+              s4[2] = fmaf(v, w.z, s4[2]);
+              s4[3] = fmaf(v, w.w, s4[3]);
+            }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            s4[k] += __shfl_xor_sync(0xffffffffu, s4[k], 1);
+            s4[k] += __shfl_xor_sync(0xffffffffu, s4[k], 2);
+            s4[k] += w3s[GBN * MAX_C3 + o0 + k];
+          }
+          if (in && q == (o0 >> 2)) {   // one lane of the quad per 4 outputs
+            if (C3 % 4 == 0) {
+              *reinterpret_cast<float4*>(out + o0) = make_float4(s4[0], s4[1], s4[2], s4[3]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                if (o0 + k < C3) out[o0 + k] = s4[k];
+            }
+          }
+        }
+      } else if (in) {
+        const size_t o = pix * p.Cout + tile.n0 + c;
+        float* out = static_cast<float*>(p.out) + o;
+        if constexpr (EPI == EPI_RESID) {
+          const float* v = static_cast<const float*>(p.resid) + o;
+          const float* bs = static_cast<const float*>(p.base);
+#pragma unroll
+          for (int j = 0; j < GBN / 8; ++j) {
+            const float2 x = *reinterpret_cast<const float2*>(v + 8 * j);
+            acc[4 * j + 2 * h] = x.x + acc[4 * j + 2 * h];
+            acc[4 * j + 2 * h + 1] = x.y + acc[4 * j + 2 * h + 1];
+          }
+          if (bs != nullptr) {
+#pragma unroll
+            for (int j = 0; j < GBN / 8; ++j) {
+              const float2 x = *reinterpret_cast<const float2*>(bs + o + 8 * j);
+              acc[4 * j + 2 * h] += x.x;
+              acc[4 * j + 2 * h + 1] += x.y;
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < GBN / 8; ++j)
+          *reinterpret_cast<float2*>(out + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
-template <int EPI, bool RELU>
-cudaError_t launch_conv_fp32(const ConvArgs& p, cudaStream_t s) {
-  cudaError_t e = sm90::configure<conv3x3_fp32<EPI, RELU>>(FmaLayout::BYTES);
+// The map of the split taps (2, Cout, 9 Cin) fp32 as (9 Cin, Cout, 2): boxes
+// of 32 k x 128 output channels, 128-byte swizzle
+inline bool tf32_taps_map(CUtensorMap* map, const void* ptr, int Cout, int K) {
+  const sm90::EncodeTiled fn = sm90::encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)Cout, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)K * 4, (cuuint64_t)Cout * K * 4};
+  const cuuint32_t box[3] = {TBK, GBN, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPI>
+cudaError_t launch_conv_tf32(const ConvArgs& p, cudaStream_t stream) {
+  cudaError_t e = sm90::configure<conv_tf32_sm90<EPI>>(Tf32Smem::BYTES);
   if (e != cudaSuccess) return e;
-  const long long M = (long long)p.B * p.H * p.W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), p.Cout / BN);
-  conv3x3_fp32<EPI, RELU><<<grid, FMA_THREADS, FmaLayout::BYTES, s>>>(p);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  CUtensorMap ta, tw;
+  if (!nhwc_map(&ta, p.x, p.B, p.H, p.W, p.Cin, 1 << p.bwl, p.bh, false) ||
+      !tf32_taps_map(&tw, p.w, p.Cout, 9 * p.Cin))
+    return cudaErrorInvalidValue;
+  const int grid = p.tiles < sms ? p.tiles : sms;
+  conv_tf32_sm90<EPI><<<grid, TF32_THREADS, Tf32Smem::BYTES, stream>>>(ta, tw, p);
   return cudaGetLastError();
 }
 
@@ -554,8 +685,10 @@ using namespace a3r::dpt;
 
 // One 3x3 SAME convolution with an epilogue (see the header). Tensors are
 // contiguous NHWC in one storage dtype (bf16 or fp32) with 16-byte aligned
-// rows; bias (16-byte aligned), w3 and b3 are fp32. bf16: Cin % 64 == 0
-// (one 128-byte swizzle row a k-tile); fp32: Cin % 32 == 0. Cout % 128 == 0;
+// rows; bias (16-byte aligned), w3 and b3 are fp32. w: bf16 the taps (9, Cin,
+// Cout); fp32 their TF32 split (2, Cout, 9 Cin) in the kernel's k order
+// (tf32_taps, ops/dpt_pipeline.py). A k-tile is one 128-byte swizzle row of
+// channels: Cin % 64 == 0 in bf16, Cin % 32 == 0 in fp32. Cout % 128 == 0;
 // EPI_HEAD needs Cout == 128 and 1 <= C3 <= 16; EPI_RESID needs resid.
 // (epi, relu_in) is one of (EPI_ROUND, 0), (EPI_RELU, 1), (EPI_RESID, 0),
 // (EPI_HEAD, 0).
@@ -563,7 +696,7 @@ A3R_EXPORT int a3r_conv3x3(const void* x, const void* w, const void* bias, void*
                            const void* resid, const void* base, const void* w3,
                            const void* b3, int B, int H, int W, int Cin, int Cout, int C3,
                            int epi, int relu_in, int is_bf16, void* stream) {
-  const int bk = is_bf16 ? GBK : BKC;
+  const int bk = is_bf16 ? GBK : TBK;
   if (B <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % bk || Cout <= 0 || Cout % GBN ||
       (long long)B * H * W > 0x7fffffffLL - GBM || Cout / GBN > 65535 ||
       !conv_mode(epi, relu_in) || bias == nullptr || (uintptr_t)bias % 16 ||
@@ -578,7 +711,7 @@ A3R_EXPORT int a3r_conv3x3(const void* x, const void* w, const void* bias, void*
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const ConvArgs p{x, w, (const float*)bias, out, resid, base, (const float*)w3,
                    (const float*)b3, B, H, W, Cin, Cout, C3, bwl, bh, nn, nw, nh,
-                   (int)tiles, 9 * Cin / GBK};
+                   (int)tiles, 9 * Cin / bk};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (is_bf16) {
@@ -590,10 +723,10 @@ A3R_EXPORT int a3r_conv3x3(const void* x, const void* w, const void* bias, void*
     }
   } else {
     switch (epi) {
-      case EPI_ROUND: e = launch_conv_fp32<EPI_ROUND, false>(p, s); break;
-      case EPI_RELU: e = launch_conv_fp32<EPI_RELU, true>(p, s); break;
-      case EPI_RESID: e = launch_conv_fp32<EPI_RESID, false>(p, s); break;
-      default: e = launch_conv_fp32<EPI_HEAD, false>(p, s); break;
+      case EPI_ROUND: e = launch_conv_tf32<EPI_ROUND>(p, s); break;
+      case EPI_RELU: e = launch_conv_tf32<EPI_RELU>(p, s); break;
+      case EPI_RESID: e = launch_conv_tf32<EPI_RESID>(p, s); break;
+      default: e = launch_conv_tf32<EPI_HEAD>(p, s); break;
     }
   }
   return (int)e;

@@ -11,7 +11,8 @@
 //
 // The TPU kernel's (C, N)-transposed layout and head streaming exist for
 // sublane tiling and are not carried over. Here a site is:
-//   layernorm_kernel (one warp per token row, fp32 statistics, eps 1e-6)
+//   layernorm_kernel (a persistent grid, one warp per token row at a time,
+//     16-byte loads and stores, fp32 statistics, eps 1e-6; bytes-bound)
 //   gemm_sm90<EPI_BIAS_ROPE> for q and k, gemm_sm90<EPI_BIAS> for v
 //   site_attention_sm90 (one warpgroup per (row, head, 64-query tile))
 //   gemm_sm90<EPI_BIAS_RESID | EPI_BIAS> for the out-projection,
@@ -42,42 +43,128 @@ namespace a3r {
 
 // ------------------------------------------------------------- layernorm
 
-__global__ void layernorm_kernel(const bf16* __restrict__ x,
-                                 const float* __restrict__ scale,
-                                 const float* __restrict__ bias,
-                                 bf16* __restrict__ y, long long rows_per_g,
-                                 long long rows, int C, float eps) {
-  constexpr int MAXV = 32;  // C <= 1024
+constexpr int LN_THREADS = 256;
+
+// bf16 x8 <-> fp32
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// y = (x - mean) rsqrt(var + eps) scale + bias per row of C, the statistics
+// in fp32 (the mean, then the mean of the centred squares), one rounding to
+// bf16; row r takes stream r / rows_per_g's scale and bias. A persistent
+// grid: each warp walks rows warp, warp + warps, ..., its lanes holding 16
+// bytes (8 channels) of each of NV blocks of 256 channels (lane l: channels
+// 256 i + 8 l..), with the next row's loads in flight during this row's
+// reductions, and the scale and bias of its channels in registers until
+// the stream changes.
+template <int NV>
+__global__ void __launch_bounds__(LN_THREADS)
+layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
+                 const float* __restrict__ bias, bf16* __restrict__ y, long long rows_per_g,
+                 long long rows, int C, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int g = (int)(row / rows_per_g);
-  const bf16* xr = x + row * C;
-  float v[MAXV];
-  float s = 0.f;
+  const long long warps = (long long)gridDim.x * (LN_THREADS / 32);
+  long long row = (long long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  bool on[NV];
 #pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int c = i * 32 + lane;
-    v[i] = c < C ? __bfloat162float(xr[c]) : 0.f;
-    s += v[i];
-  }
-  const float mu = warp_sum(s) / C;
-  float s2 = 0.f;
+  for (int i = 0; i < NV; ++i) on[i] = 256 * i + 8 * lane < C;
+  const auto load = [&](long long r, uint4 (&v)[NV]) {
 #pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int c = i * 32 + lane;
-    const float d = c < C ? v[i] - mu : 0.f;
-    s2 += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(s2) / C + eps);
-  const float* sc = scale + (size_t)g * C;
-  const float* bi = bias + (size_t)g * C;
-  bf16* yr = y + row * C;
+    for (int i = 0; i < NV; ++i)
+      v[i] = on[i] && r < rows
+                 ? *reinterpret_cast<const uint4*>(x + r * C + 256 * i + 8 * lane)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  };
+  uint4 cur[NV], nxt[NV];
+  float sc[NV][8], bi[NV][8];
+  long long g = -1;
+  load(row, cur);
+  for (; row < rows; row += warps) {
+    load(row + warps, nxt);
+    if (row / rows_per_g != g) {
+      g = row / rows_per_g;
 #pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int c = i * 32 + lane;
-    if (c < C) yr[c] = __float2bfloat16((v[i] - mu) * rs * sc[c] + bi[c]);
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int k = 0; k < 8; k += 4) {
+          const size_t at = (size_t)g * C + 256 * i + 8 * lane + k;
+          const float4 s = on[i] ? *reinterpret_cast<const float4*>(scale + at)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 b = on[i] ? *reinterpret_cast<const float4*>(bias + at)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          sc[i][k] = s.x, sc[i][k + 1] = s.y, sc[i][k + 2] = s.z, sc[i][k + 3] = s.w;
+          bi[i][k] = b.x, bi[i][k + 1] = b.y, bi[i][k + 2] = b.z, bi[i][k + 3] = b.w;
+        }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float v[8];
+      unpack8(cur[i], v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += v[k];
+    }
+    const float mu = warp_sum(s) / C;
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float v[8];
+      unpack8(cur[i], v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float d = on[i] ? v[k] - mu : 0.f;
+        s2 += d * d;
+      }
+    }
+    const float rs = rsqrtf(warp_sum(s2) / C + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if (!on[i]) continue;
+      float v[8];
+      unpack8(cur[i], v);
+      uint32_t o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[k] = sm90::pack_bf16((v[2 * k] - mu) * rs * sc[i][2 * k] + bi[i][2 * k],
+                               (v[2 * k + 1] - mu) * rs * sc[i][2 * k + 1] + bi[i][2 * k + 1]);
+      *reinterpret_cast<uint4*>(y + row * C + 256 * i + 8 * lane) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) cur[i] = nxt[i];
   }
+}
+
+// blocks of one instance that fill the card: the blocks an SM holds x SMs
+template <int NV>
+int layernorm_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layernorm_kernel<NV>,
+                                                      LN_THREADS, 0) != cudaSuccess)
+      return 0;
+    blocks = per_sm * sm_count();
+  }
+  return blocks;
+}
+
+template <int NV>
+cudaError_t launch_layernorm(const bf16* x, const float* scale, const float* bias, bf16* y,
+                             long long rows_per_g, long long rows, int C, float eps,
+                             cudaStream_t s) {
+  const long long fill = layernorm_blocks<NV>();
+  if (fill <= 0) return cudaErrorInvalidDevice;
+  const long long need = (rows + LN_THREADS / 32 - 1) / (LN_THREADS / 32);
+  layernorm_kernel<NV><<<(unsigned)(need < fill ? need : fill), LN_THREADS, 0, s>>>(
+      x, scale, bias, y, rows_per_g, rows, C, eps);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- attention
@@ -100,16 +187,24 @@ site_attention_sm90(const __grid_constant__ CUtensorMap tq,
 
 using namespace a3r;
 
+// x, y (rows, C) bf16, scale and bias (rows / rows_per_g, C) fp32, all
+// contiguous and 16-byte aligned; C % 8 == 0, C <= 1024
 A3R_EXPORT int a3r_layernorm(const void* x, const void* scale, const void* bias,
                              void* y, long long rows_per_g, long long rows,
                              int C, float eps, void* stream) {
-  if (C > 1024) return (int)cudaErrorInvalidValue;
-  const int warps = 8;
-  const long long blocks = (rows + warps - 1) / warps;
-  layernorm_kernel<<<(unsigned)blocks, warps * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)scale, (const float*)bias, (bf16*)y,
-      rows_per_g, rows, C, eps);
-  return (int)cudaGetLastError();
+  if (C < 8 || C > 1024 || C % 8 || rows < 1 || rows_per_g < 1 ||
+      ((uintptr_t)x | (uintptr_t)scale | (uintptr_t)bias | (uintptr_t)y) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto xx = (const bf16*)x;
+  const auto sc = (const float*)scale, bi = (const float*)bias;
+  const auto yy = (bf16*)y;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((C + 255) / 256) {
+    case 1: return (int)launch_layernorm<1>(xx, sc, bi, yy, rows_per_g, rows, C, eps, s);
+    case 2: return (int)launch_layernorm<2>(xx, sc, bi, yy, rows_per_g, rows, C, eps, s);
+    case 3: return (int)launch_layernorm<3>(xx, sc, bi, yy, rows_per_g, rows, C, eps, s);
+    default: return (int)launch_layernorm<4>(xx, sc, bi, yy, rows_per_g, rows, C, eps, s);
+  }
 }
 
 // C (G, M, N) = epilogue(A (G, M, K) @ W (G, K, N)) on gemm.cuh's core, all

@@ -129,6 +129,6 @@ def stream() -> int:
 
 
 def dense(t):
-    """t contiguous, with 16-byte aligned rows for the kernels' cp.async."""
+    """t contiguous, with 16-byte aligned rows for the kernels' TMA and 16-byte loads."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -26,13 +26,16 @@ The CUDA implementation is csrc/dpt_pipeline.cu: each 3x3 conv is one launch
 of an implicit GEMM with an epilogue (``conv3x3_plain`` is one launch's plain
 version), in bf16 on the Hopper GEMM core of csrc/gemm.cuh (each k-tile a
 tap-shifted, zero-filled box of BW x BH pixels, ``conv_tiles_plain``), in fp32
-on an FMA kernel; the upsample is a two-tap kernel. What bounds them and what
-the design does about it is written at the top of that file.
+on the same walk with 3xTF32 tensor-core products (``conv_tiles_tf32_plain``;
+the wrapper splits the taps, ``tf32_taps``); the upsample is a two-tap
+kernel. What bounds them and what the design does about it is written at the
+top of that file.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernels (counted on ``fused_res_unit.launches`` and
-``fused_head_final.launches``, once per call) or raises for a dtype or shape
-they do not take. There is no fallback.
+``fused_head_final.launches``, once per call, and the fp32 calls, which
+launch the 3xTF32 kernel, on ``launches_fp32`` as well) or raises for a
+dtype or shape they do not take. There is no fallback.
 """
 from __future__ import annotations
 
@@ -45,14 +48,19 @@ import torch.nn.functional as F
 from align3r_tpu_torch.models.nn import _interp_matrix
 from align3r_tpu_torch.ops import _lib
 from align3r_tpu_torch.ops.autograd import KernelWithTwin
+from align3r_tpu_torch.ops.small_attention import tf32_mm, tf32_round
 
 # the epilogues (csrc/dpt_pipeline.cu enum Epi) and the kernels' tiles:
 # CONV_BM pixels x CONV_BN output channels (gemm.cuh's GBM, GBN), k-tiles of
-# CONV_BK input channels in bf16 (GBK) and FMA_BK in fp32 (BKC), boxes at most
-# CONV_BW pixels wide, at most MAX_C3 outputs of the 1x1 conv
+# CONV_BK input channels in bf16 (GBK) and TF32_BK in fp32 (TBK), boxes at
+# most CONV_BW pixels wide, at most MAX_C3 outputs of the 1x1 conv
 EPI_ROUND, EPI_RESID, EPI_HEAD, EPI_RELU = 0, 1, 2, 3
-CONV_BM, CONV_BN, CONV_BK, FMA_BK, CONV_BW = 128, 128, 64, 32, 64
+CONV_BM, CONV_BN, CONV_BK, TF32_BK, CONV_BW = 128, 128, 64, 32, 64
 MAX_C3 = 16
+# the fp32 kernel's k order in each TF32_BK block of the taps: k8 slice kk's
+# k = q and q + 4 are channels 8 q + 2 kk and 8 q + 2 kk + 1 (the A fragment
+# a thread reads as one 16-byte chunk a row, csrc/dpt_pipeline.cu tf32_frags)
+TF32_K_ORDER = tuple(8 * (k % 4) + 2 * kk + k // 4 for kk in range(4) for k in range(8))
 
 
 def supported(x) -> bool:
@@ -158,6 +166,47 @@ def conv_tiles_plain(x, taps, bias):
     return out
 
 
+def conv_tiles_tf32_plain(x, taps, bias, split: bool = True):
+    """conv3x3(x) + bias in fp32 as the fp32 kernel walks it: the bf16
+    kernel's tiles and tap-shifted, zero-filled boxes (conv_tiles_plain) with
+    k-tiles of TF32_BK channels, each k-tile's product one 3xTF32 product
+    (small_attention.tf32_mm), summed in k-tile order. split=False runs
+    single-pass TF32, the function the split exists to avoid."""
+    B, H, W, Cin = x.shape
+    Cout = taps.shape[-1]
+    bw, bh = conv_box(W)
+    wk = taps.reshape(9 * Cin, Cout).float()
+    xp = F.pad(x.float(), (0, 0, 1, bw + 1, 1, bh + 1))
+    out = torch.empty(B, H, W, Cout)
+    kc = Cin // TF32_BK
+    for b, h0, w0, n0 in conv_walk(B, H, W, Cout):
+        acc = torch.zeros(bh * bw, CONV_BN)
+        for kt in range(9 * kc):
+            tap, cb = divmod(kt, kc)
+            dh, dw = divmod(tap, 3)
+            box = xp[b, h0 + dh:h0 + dh + bh, w0 + dw:w0 + dw + bw,
+                     cb * TF32_BK:(cb + 1) * TF32_BK]
+            acc += tf32_mm(box.reshape(bh * bw, TF32_BK),
+                           wk[kt * TF32_BK:(kt + 1) * TF32_BK, n0:n0 + CONV_BN], split)
+        tile = (acc + bias[n0:n0 + CONV_BN].float()).reshape(bh, bw, CONV_BN)
+        hs, ws = min(bh, H - h0), min(bw, W - w0)
+        out[b, h0:h0 + hs, w0:w0 + ws, n0:n0 + CONV_BN] = tile[:hs, :ws]
+    return out
+
+
+def tf32_taps(taps):
+    """The fp32 kernel's W operand: (9, Cin, Cout) fp32 taps -> (2, Cout,
+    9 Cin), their hi = tf32(w) and lo = tf32(w - hi) K-major (TF32 wgmma has
+    no transpose bit), each TF32_BK block of k in TF32_K_ORDER."""
+    Cin, Cout = taps.shape[1:]
+    # channel 8 a + 2 kk + b of a block to position 8 kk + 4 b + a: views
+    # only, so a CUDA graph can capture it
+    w = taps.float().reshape(9 * Cin // TF32_BK, 4, 4, 2, Cout).permute(0, 2, 3, 1, 4)
+    w = w.reshape(9 * Cin, Cout).t()
+    hi = tf32_round(w)
+    return torch.stack([hi, tf32_round(w - hi)]).contiguous()
+
+
 def res_unit_plain(v, base, w, bias):
     """Plain version of K7, and the twin whose autograd is its backward (the
     JAX _xla_twin, :219-235). w (2, 9, C, C) taps, bias (2, C) fp32."""
@@ -177,9 +226,12 @@ def _check_act(name, t, dtype=None):
 
 def _conv(x, taps, bias, out, epi, relu, resid=None, base=None, w3=None, b3=None):
     """One launch of the implicit-GEMM 3x3 conv (csrc a3r_conv3x3: conv_sm90
-    in bf16, conv3x3_fp32 in fp32); its plain version is conv3x3_plain."""
+    in bf16, conv_tf32_sm90 on the split taps in fp32); its plain version is
+    conv3x3_plain."""
     B, H, W, Cin = x.shape
     Cout = taps.shape[-1]
+    if x.dtype == torch.float32:
+        taps = tf32_taps(taps)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     _lib.check(_lib.library().a3r_conv3x3(
         x.data_ptr(), taps.data_ptr(), bias.data_ptr(), out.data_ptr(), ptr(resid),
@@ -209,6 +261,7 @@ def _res_unit_cuda(v, base, w, bias):
     _conv(v, w[0], bias[0], a, EPI_RELU, True)
     _conv(a, w[1], bias[1], out, EPI_RESID, False, resid=v, base=base)
     fused_res_unit.launches += 1
+    fused_res_unit.launches_fp32 += v.dtype == torch.float32
     return out
 
 
@@ -288,7 +341,7 @@ def _head_final_cuda(x, w1, b1, w2, b2, w3, b3):
     B, Hin, Win, C1 = x.shape
     C2, Cout = w1.shape[-1], w3.shape[-1]
     _check_act("x", x)
-    bk = CONV_BK if x.dtype == torch.bfloat16 else FMA_BK
+    bk = CONV_BK if x.dtype == torch.bfloat16 else TF32_BK
     if (C1 % bk or C2 != 128 or tuple(w1.shape) != (9, C1, C2)
             or tuple(w2.shape) != (9, C2, C2) or tuple(w3.shape) != (C2, Cout)
             or not 1 <= Cout <= MAX_C3):
@@ -311,6 +364,7 @@ def _head_final_cuda(x, w1, b1, w2, b2, w3, b3):
     out = torch.empty(B, 2 * Hin, 2 * Win, Cout, device=dev, dtype=torch.float32)
     _conv(h2, w2, b2, out, EPI_HEAD, False, w3=w3, b3=b3)
     fused_head_final.launches += 1
+    fused_head_final.launches_fp32 += dt == torch.float32
     return out
 
 
@@ -323,5 +377,5 @@ def fused_head_final(x, p1, p2, p3):
     return _head_final_cuda(x, *ws) if x.is_cuda else head_final_plain(x, *ws)
 
 
-fused_res_unit.launches = 0
-fused_head_final.launches = 0
+fused_res_unit.launches = fused_res_unit.launches_fp32 = 0
+fused_head_final.launches = fused_head_final.launches_fp32 = 0

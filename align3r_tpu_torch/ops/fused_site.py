@@ -206,14 +206,20 @@ def site_plain(xq, xkv, wq, wk, wv, wo, bq, bk, bv, bo, cos, sin,
 
 
 def _ln_cuda(lib, x, p, s):
-    """LayerNorm kernel on contiguous bf16 x (G, B, N, C); p = (scale, bias)
-    each (G, C)."""
+    """K1/K2's LayerNorm launch on bf16 x (G, B, N, C), C % 8 == 0
+    and C <= 1024; p = (scale, bias) each (G, C). Its plain version is _ln;
+    each launch counts on _ln_cuda.launches."""
     G, B, N, C = x.shape
+    x = _lib.dense(x)
     y = torch.empty_like(x)
-    _lib.check(lib.a3r_layernorm(x.data_ptr(), p[0].float().contiguous().data_ptr(),
-                                 p[1].float().contiguous().data_ptr(), y.data_ptr(),
+    scale, bias = (_lib.dense(t.float()) for t in p)
+    _lib.check(lib.a3r_layernorm(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
                                  B * N, G * B * N, C, 1e-6, s), "layernorm")
+    _ln_cuda.launches += 1
     return y
+
+
+_ln_cuda.launches = 0
 
 
 def site_attention_plain(q, k, v, num_heads: int):

@@ -1,7 +1,7 @@
 """Profile K1's and K2's sites on one GPU, by launch, and the serving engine.
 
     python -m align3r_tpu_torch.tools.profile_site [--out build/site_profile.json]
-        [--engine]
+        [--engine] [--ln]
 
 Runs K1 (``ops.fused_site.attention_site``) at the serving path's three
 shapes, from seeded random bf16 inputs and weights at 512x288 (576 tokens):
@@ -19,6 +19,9 @@ decoder's (2 streams, C = 768, F = 3072) shapes. Per site it reports:
   epilogue in the kernel's name, in the WMMA core's (``gemm_kernel<EPI>``,
   before the Hopper GEMM core) and the Hopper core's (``gemm_sm90<EPI>``)
   naming, so a copy of this file profiles an older tree as well.
+With ``--ln`` it times only K1/K2's LayerNorm launch alone at the two MLP
+sites' rows (encoder 9,216 x 1024, decoder 2 x 18,432 x 768), each call on
+the next of 4 inputs so that it reads HBM, beside F.layer_norm.
 With ``--engine`` it also builds VIT_L_512 from seeded weights and times the
 serving engine (``inference.engine.inference``) on ``chip_smoke.py``'s 24
 synthetic frames (190 pairs, batch 32): two warm runs, pairs/s of each.
@@ -114,6 +117,37 @@ def profile_mlp(dev, gen, name, G, B, C, reps: int = 10) -> dict:
     return split_site(f"{name} G={G} B={B} N={N} C={C} F={F}", site, MLP_PARTS, reps)
 
 
+def profile_layernorm(dev, gen, name, G, B, C, reps: int = 20, rotate: int = 4) -> dict:
+    """K1/K2's LayerNorm launch alone (fused_site._ln_cuda) and F.layer_norm
+    (one call per stream, bf16 weights) on the same (G, B, 576, C) bf16 rows,
+    each from a CUDA graph of `reps` calls, each call on the next of `rotate`
+    inputs with the last 2 x `rotate` outputs kept, so that it reads HBM and
+    not the L2."""
+    import collections
+    import itertools
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import _lib
+    from align3r_tpu_torch.ops import fused_site as fs
+    xs = [torch.randn(G, B, 576, C, generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(rotate)]
+    p = (1 + 0.1 * torch.randn(G, C, generator=gen, device=dev),
+         0.1 * torch.randn(G, C, generator=gen, device=dev))
+    wb = [t.to(torch.bfloat16) for t in p]
+    lib = _lib.library()
+    keep = collections.deque(maxlen=2 * rotate)
+
+    def rotated(f):
+        turn = itertools.count()
+        return lambda: keep.append(f(xs[next(turn) % rotate]))
+
+    res = {"site": f"layernorm {name}", "rows": G * B * 576, "C": C,
+           "ms": graph_ms(rotated(lambda x: fs._ln_cuda(lib, x, p, _lib.stream())), reps),
+           "library_ms": graph_ms(rotated(lambda x: [
+               F.layer_norm(x[g], (C,), wb[0][g], wb[1][g], 1e-6) for g in range(G)]), reps)}
+    keep.clear()
+    return res
+
+
 def split_site(label, site, parts, reps, graph: bool = True) -> dict:
     """The site's device time from a CUDA graph (None with graph=False, for
     a call that cannot be captured), and its kernels' device time by part
@@ -189,6 +223,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/site_profile.json")
     ap.add_argument("--engine", action="store_true")
+    ap.add_argument("--ln", action="store_true",
+                    help="time only the LayerNorm launch alone, beside F.layer_norm")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_site needs a CUDA device")
@@ -198,8 +234,11 @@ def main(argv=None) -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = {"card": card, "sites": [profile_site(dev, gen, *s) for s in SITES]
-           + [profile_mlp(dev, gen, *s) for s in MLP_SITES]}
+    if args.ln:
+        res = {"card": card, "sites": [profile_layernorm(dev, gen, *s) for s in MLP_SITES]}
+    else:
+        res = {"card": card, "sites": [profile_site(dev, gen, *s) for s in SITES]
+               + [profile_mlp(dev, gen, *s) for s in MLP_SITES]}
     if args.engine:
         res["engine"] = engine_rates(dev)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -12,12 +12,13 @@ final result line:
                 kernels must spill nothing. Every
                 instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
                 bf16 conv_sm90, 4 each) must spill nothing and its SASS
-                (cuobjdump -sass) must hold HGMMA instructions; so must K9's
+                (cuobjdump -sass) must hold HGMMA instructions; so must K7/
+                K8's fp32 3xTF32 conv (conv_tf32_sm90, 4 epilogues), K9's
                 bf16 D = 256 backward (dK/dV and dQ), K6's fp32 forward (3
                 instances) and K9's fp32 forward and backward (dK/dV and dQ)
                 at D = 64, 128 and 256; no bf16 instance of the old WMMA
-                backward, and no scalar-FMA fp32 attention kernel, may be in
-                the library.
+                backward, and no scalar-FMA fp32 attention or conv kernel
+                (conv3x3_fp32), may be in the library.
   3. kernels  - each kernel's wrapper against its plain PyTorch version on the
                 card at the main path's shapes: max abs/rel error against a
                 stated tolerance, and the time of each side (CUDA events; K1
@@ -33,7 +34,9 @@ final result line:
                 K6 and SDPA on that layout. K1/K2's LayerNorm launch alone
                 (the encoder's 9,216 rows x 1024, the decoder's 2 streams x
                 18,432 rows x 768) against its plain version, timed from a
-                CUDA graph beside F.layer_norm (one call per stream). Each
+                CUDA graph beside F.layer_norm (one call per stream), each
+                call on the next of 4 inputs so that it reads HBM, not L2;
+                its launches count on fused_site._ln_cuda.launches. Each
                 GEMM launch of K1 and K2
                 alone (q/k with RoPE, v, out-projection with the residual,
                 fc1 with GELU, fc2 with the residual; encoder and decoder
@@ -57,8 +60,10 @@ final result line:
                 (240 on the bf16 pack, 60 on the fp32 repack); outputs must
                 be finite and of the expected shapes; the GEMM core must have
                 launched 4
-                times per K1 site and twice per K2 site. A second, warm run
-                gives pairs/s and it/s.
+                times per K1 site and twice per K2 site, the LayerNorm launch
+                twice per K1 site (one a site, and each decoder cross site
+                normalises its memory too: as many as K1 - K2 sites). A
+                second, warm run gives pairs/s and it/s.
   6. flow     - the same entry point on the demo's flow path: SEA-RAFT
                 spring-M at full width (seeded random weights) computes flows
                 in both directions of every edge, the self-supervised motion
@@ -89,7 +94,13 @@ final result line:
                 default heads' in the same process (the two round bf16 at
                 other points per stage); engine pairs/s of both, warm; then
                 reconstruct_scene with inference_kw={"head_conv_impl":
-                "pipeline"} and finite outputs.
+                "pipeline"} and finite outputs. Then the same model with fp32
+                heads (head_dtype fp32, the demo's): xla and pipeline heads on
+                the same 190 pairs, counters zeroed first, 84 K7 and 12 K8
+                launches on fp32 tensors (0 with the xla heads), pts3d and
+                conf within a median relative difference of 1e-4 (cuDNN with
+                TF32 off; the maximum printed too), engine seconds of both
+                warm, in turns (xla, pipeline, pipeline, xla).
   9. long     - the fine-tuning entry point at the config's own 512x512 (1024
                 tokens, so every attention takes K9, never K6): K9's gradient
                 against autograd of its plain forward, then train() at
@@ -118,8 +129,11 @@ final result line:
                 (weights, load, engine, init, solve, writers, hierarchical
                 total) and the card.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
-a base), K8 (the head tail at the main path's shape, and fp32), both timed
-from a CUDA graph and split by launch beside the XLA-path chain, and K9
+a base, in bf16 and fp32), K8 (the head tail at the main path's shape, bf16
+and fp32, and at (4, 72, 128, 256) fp32), both timed from a CUDA graph and
+split by launch beside the XLA-path chain (cuDNN, TF32 off; from a CUDA graph
+and launched one by one), and untimed at the main path's last batch of 30
+pairs, and K9
 (forward and backward at the 512x512 training shapes, a ragged length,
 D = 128 and D = 256, in bf16 and in fp32) to their plain versions. Then the card line as nvidia-smi
 prints it, one JSON line with the kernels (time, plain time, bound, launches
@@ -142,6 +156,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES, H, W = 24, 288, 512
 FLOW_FRAMES = 12
 BATCH = 32
+TAIL_BATCH = 190 % BATCH   # the last decode batch of the main path's 190 pairs
+LN_ROTATE = 4   # inputs the LayerNorm row cycles through: 75-226 MB, past the L2
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
 DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
@@ -208,8 +224,10 @@ ATTN_INSTANCES = {r"flash_bwd_dkv_sm90ILi256E": 1, r"flash_bwd_dq_sm90ILi256E": 
                   r"flash_bwd_dkv_tf32I": 3, r"flash_bwd_dq_tf32I": 3}
 # the old WMMA backward kernels in bf16, which must not be in the library
 WMMA_BF16 = r"flash_bwd_(dkv|dq)I(?!f)"
-# the scalar-FMA fp32 attention kernels, which must not be in the library
-FMA_F32 = r"flash_fwd_f32|flash_bwd_(dkv|dq)If"
+# K7/K8's fp32 3x3 conv on the 3xTF32 tensor-core policy, 4 epilogues
+TF32_CONV = {"conv_tf32_sm90": 4}
+# the scalar-FMA fp32 attention and conv kernels, which must not be in the library
+FMA_F32 = r"flash_fwd_f32|flash_bwd_(dkv|dq)If|conv3x3_fp32"
 
 
 def hgmma_counts(lib_path, patterns) -> dict:
@@ -426,7 +444,13 @@ def check_layernorm(dev, gen):
     order, one rounding to bf16. Timed from a CUDA graph beside
     F.layer_norm on the same bf16 rows with bf16 weights (one call per
     stream), the library call the port never makes; bound by bytes (x read,
-    y written, the fp32 scale and bias read)."""
+    y written, the fp32 scale and bias read). Each timed call takes the next
+    of LN_ROTATE inputs and writes a new output, the last 2 x LN_ROTATE
+    outputs kept alive, so that a call reads x from HBM and not from the
+    50 MB L2 as its bound assumes (at the encoder's 18.9 MB a row set, one
+    x alone would stay in L2)."""
+    import collections
+    import itertools
     import torch
     import torch.nn.functional as F
     from align3r_tpu_torch.ops import _lib
@@ -435,24 +459,33 @@ def check_layernorm(dev, gen):
     lib = _lib.library()
     rows = []
     for name, G, Bn, C in (("encoder", 1, 16, 1024), ("decoder", 2, 32, 768)):
-        x = torch.randn(G, Bn, N, C, generator=gen, device=dev).to(torch.bfloat16)
+        xs = [torch.randn(G, Bn, N, C, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(LN_ROTATE)]
         p = (1 + 0.1 * torch.randn(G, C, generator=gen, device=dev),
              0.1 * torch.randn(G, C, generator=gen, device=dev))
         wb = [t.to(torch.bfloat16) for t in p]
-        kern = lambda: fs._ln_cuda(lib, x, p, _lib.stream())
-        plain = lambda: fs._ln(x, p)
-        library = lambda: [F.layer_norm(x[g], (C,), wb[0][g], wb[1][g], 1e-6) for g in range(G)]
-        out, ref = kern(), plain()
+        keep = collections.deque(maxlen=2 * LN_ROTATE)
+
+        def rotated(f):
+            turn = itertools.count()
+            return lambda: keep.append(f(xs[next(turn) % LN_ROTATE]))
+
+        kern = rotated(lambda x: fs._ln_cuda(lib, x, p, _lib.stream()))
+        library = rotated(lambda x: [F.layer_norm(x[g], (C,), wb[0][g], wb[1][g], 1e-6)
+                                     for g in range(G)])
+        out, ref = fs._ln_cuda(lib, xs[0], p, _lib.stream()), fs._ln(xs[0], p)
         torch.cuda.synchronize()
         err, rel, scale = max_err(out, ref)
         b_ms, b_by = bound(2 * G * Bn * N * C * 2 + 2 * G * C * 4, 8 * G * Bn * N * C, PEAK_FP32)
         rows.append(ratios(dict(
-            kernel="K1", shape=f"LayerNorm launch {name} G={G} rows={Bn * N} C={C} bf16",
+            kernel="K1/K2 LN", shape=f"LayerNorm launch {name} G={G} rows={Bn * N} C={C} bf16",
             max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
             ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
-            ms=graph_time(kern, 20), ms_eager=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5),
+            ms=graph_time(kern, 20), ms_eager=cuda_time(kern, 20),
+            plain_ms=cuda_time(lambda: fs._ln(xs[0], p), 5),
             library_ms=graph_time(library, 20), bound_ms=b_ms, bound_by=b_by)))
-        del x, out, ref
+        keep.clear()
+        del xs, out, ref
     return rows
 
 
@@ -669,15 +702,20 @@ def check_k5(dev, gen, n=N_FRAMES, graph="swinstride-5-noncyclic", timed=True):
 
 def check_k7(dev, gen):
     """K7 against its plain version at the pipeline heads' four refinenet
-    shapes (decode batch 32 at 512x288), bf16, without and with a base (the
-    fusion block's x + res1(skip)). Tolerance: 2 bf16 ulps of max|plain|
-    (1.6e-2 x max): both round each conv's fp32 sum plus bias to bf16 at the
-    same points, summed in another order. Beside it, the port's XLA-path
-    residual unit on the same inputs (the default head's chain: cuDNN
-    convolutions); no single PyTorch call computes the unit. Both are timed
-    from a CUDA graph (`ms_eager`: the unit launched one by one), and the
-    unit's device time is split by launch under torch.profiler (conv 1,
-    conv 2 with the residual, the weights' stack and cast as `other`)."""
+    shapes (decode batch 32 at 512x288, and the last batch of the main
+    path's 190 pairs, TAIL_BATCH = 30), without and with a base (the fusion
+    block's x + res1(skip)), in bf16 and fp32. Tolerance: bf16, 2 bf16
+    ulps of max|plain| (1.6e-2 x max): both round each conv's fp32 sum plus
+    bias to bf16 at the same points, summed in another order; fp32, 1e-4 x
+    max (3xTF32 products within about 2^-21, sums in another order). At
+    batch 32 beside it, the port's XLA-path residual unit on the same inputs
+    (the default head's chain: cuDNN convolutions, TF32 off); no single
+    PyTorch call computes the unit. Both are timed from a CUDA graph and
+    launched one by one (`_eager`), and the unit's device time is split by
+    launch under torch.profiler (conv 1, conv 2 with the residual, the
+    weights' stack, cast and, in fp32, TF32 split as `other`). The batch of
+    30 is checked untimed. Bound: the operations at the bf16 peak, in fp32
+    three TF32 products each (3xTF32) at the TF32 peak."""
     import torch
     from align3r_tpu_torch.models.dpt_head import _residual_conv_unit
     from align3r_tpu_torch.ops import dpt_pipeline as dp
@@ -686,49 +724,69 @@ def check_k7(dev, gen):
     torch.backends.cudnn.allow_tf32 = False
     C = 256
     rows = []
-    conv = lambda: ((torch.randn(C, C, 3, 3, generator=gen, device=dev) / (3 * C ** 0.5)).to(
-        torch.bfloat16), (0.1 * torch.randn(C, generator=gen, device=dev)).to(torch.bfloat16))
-    unit = (conv(), conv())
-    w, b = dp._unit_weights(unit, torch.bfloat16)
-    for hw in ((72, 128), (36, 64), (18, 32), (9, 16)):     # the largest share first
-        v, base = (torch.randn(BATCH, *hw, C, generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(2))
-        for bs in (None, base):
-            kern = lambda: dp.fused_res_unit(v, unit, bs)
-            plain = lambda: dp.res_unit_plain(v, bs, w, b)
-            xla = ((lambda: _residual_conv_unit(unit, v)) if bs is None
-                   else (lambda: bs + _residual_conv_unit(unit, v)))
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            err, rel, scale = max_err(out, ref)
-            px = BATCH * hw[0] * hw[1]
-            act = px * C * 2
-            b_ms, b_by = bound(act * (3 if bs is not None else 2) + 2 * 9 * C * C * 2 + 2 * C * 4,
-                               2 * 2 * 9 * C * C * px, PEAK_BF16)
-            shape = f"({BATCH}, {hw[0]}, {hw[1]}, {C}) bf16{' + base' if bs is not None else ''}"
-            split = split_site(shape, kern, K7_PARTS, 10)
-            rows.append(dict(kernel="K7", shape=shape,
-                             max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
-                             ok=err <= 1.6e-2 * scale and torch.isfinite(out.float()).all().item(),
-                             ms=split["graph_ms"], ms_eager=cuda_time(kern, 10),
-                             split_ms=split["split_ms"], plain_ms=cuda_time(plain, 2),
-                             library_ms=None, xla_chain_ms=graph_time(xla, 10),
-                             bound_ms=b_ms, bound_by=b_by))
-            del out, ref
-        del v, base
+    for dt in (torch.bfloat16, torch.float32):
+        conv = lambda: ((torch.randn(C, C, 3, 3, generator=gen, device=dev) / (3 * C ** 0.5)).to(
+            dt), (0.1 * torch.randn(C, generator=gen, device=dev)).to(dt))
+        unit = (conv(), conv())
+        w, b = dp._unit_weights(unit, dt)
+        f32 = dt == torch.float32
+        for hw in ((72, 128), (36, 64), (18, 32), (9, 16)):     # the largest share first
+            for B_ in (BATCH, TAIL_BATCH):
+                v, base = (torch.randn(B_, *hw, C, generator=gen, device=dev).to(dt)
+                           for _ in range(2))
+                for bs in (None, base):
+                    kern = lambda: dp.fused_res_unit(v, unit, bs)
+                    plain = lambda: dp.res_unit_plain(v, bs, w, b)
+                    xla = ((lambda: _residual_conv_unit(unit, v)) if bs is None
+                           else (lambda: bs + _residual_conv_unit(unit, v)))
+                    out, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    err, rel, scale = max_err(out, ref)
+                    tol = (1e-4 if f32 else 1.6e-2) * scale
+                    shape = (f"({B_}, {hw[0]}, {hw[1]}, {C}) {'fp32' if f32 else 'bf16'}"
+                             f"{' + base' if bs is not None else ''}")
+                    row = dict(kernel="K7 fp32" if f32 else "K7", shape=shape,
+                               max_abs_err=err, max_rel_err=rel, tol=tol,
+                               ok=err <= tol and torch.isfinite(out.float()).all().item())
+                    del out, ref
+                    if B_ == BATCH:
+                        px = B_ * hw[0] * hw[1]
+                        isz = v.element_size()
+                        act = px * C * isz
+                        flop = 2 * 2 * 9 * C * C * px
+                        b_ms, b_by = bound(act * (3 if bs is not None else 2)
+                                           + 2 * 9 * C * C * isz + 2 * C * 4,
+                                           3 * flop if f32 else flop,
+                                           PEAK_TF32 if f32 else PEAK_BF16)
+                        split = split_site(shape, kern, K7_PARTS, 10)
+                        row = ratios(dict(
+                            row, ms=split["graph_ms"], ms_eager=cuda_time(kern, 10),
+                            split_ms=split["split_ms"], plain_ms=cuda_time(plain, 2),
+                            library_ms=None, xla_chain_ms=graph_time(xla, 10),
+                            xla_chain_ms_eager=cuda_time(xla, 10), bound_ms=b_ms,
+                            bound_by=b_by))
+                    rows.append(row)
+                del v, base
     return rows
 
 
 def check_k8(dev, gen):
-    """K8 against its plain version at the pipeline heads' tail (path1 of a
-    decode batch of 32 at 512x288: (32, 144, 256, 256) bf16 -> (32, 288, 512,
-    4) fp32), and at (4, 72, 128, 256) fp32. Tolerance: 2 bf16 ulps of
-    max|plain| in bf16 (h1, the column mix and the row mix are rounded at the
-    same points on both sides after fp32 sums in another order); 1e-4 x max
-    in fp32. Beside it, the port's XLA-path head tail on the same inputs (the
-    default head's chain); no single PyTorch call computes the tail. Both
-    from a CUDA graph (`ms_eager`: one by one), the tail's device time split
-    by launch (conv 1, the upsample, conv 2 with the 1x1)."""
+    """K8 against its plain version at the pipeline heads' tail: path1 of a
+    decode batch of 32 at 512x288, (32, 144, 256, 256) -> (32, 288, 512, 4)
+    fp32, from bf16 and from fp32 (the fp32 heads' run), and of the main
+    path's last batch (TAIL_BATCH = 30) in both dtypes, untimed; and at
+    (4, 72, 128, 256) fp32. Tolerance: 2 bf16 ulps of max|plain| in bf16
+    (h1, the column mix and the row mix are rounded at the same points on
+    both sides after fp32 sums in another order); 1e-4 x max in fp32. Beside
+    it, the port's XLA-path head tail on the same inputs (the default head's
+    chain, cuDNN with TF32 off); no single PyTorch call computes the tail.
+    Both from a CUDA graph and one by one (`_eager`; at the fp32 batch of 32
+    over 2 calls), the tail's device time split by launch (conv 1, the
+    upsample, conv 2 with the 1x1). The plain version's time at the fp32
+    batch of 32 is that of the one call that gives the reference. Bound: the
+    convs' and the upsample's operations at the bf16 peak, the 1x1's at the
+    fp32 peak; in fp32 the convs as three TF32 products each at the TF32
+    peak, the rest at the fp32 peak."""
     import torch
     from align3r_tpu_torch.models import nn as L
     from align3r_tpu_torch.ops import dpt_pipeline as dp
@@ -736,8 +794,12 @@ def check_k8(dev, gen):
     from align3r_tpu_torch.tools.profile_site import split_site
     torch.backends.cudnn.allow_tf32 = False
     rows = []
-    for shape, dt in (((BATCH, 144, 256, 256), torch.bfloat16),
-                      ((4, 72, 128, 256), torch.float32)):
+    f32 = torch.float32
+    for shape, dt, timed in (((BATCH, 144, 256, 256), torch.bfloat16, True),
+                             ((TAIL_BATCH, 144, 256, 256), torch.bfloat16, False),
+                             ((BATCH, 144, 256, 256), f32, True),
+                             ((TAIL_BATCH, 144, 256, 256), f32, False),
+                             ((4, 72, 128, 256), f32, True)):
         B_, Hin, Win, C1 = shape
         C2, Co = 128, 4
         x = torch.randn(*shape, generator=gen, device=dev).to(dt)
@@ -757,29 +819,43 @@ def check_k8(dev, gen):
             h = torch.relu(L.conv2d(h, *p2, padding=1))
             return L.conv2d(h.float(), *p3)
 
-        out, ref = kern(), plain()
+        out = kern()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ref = plain()
+        t1.record()
         torch.cuda.synchronize()
         err, rel, scale = max_err(out, ref)
         tol = (1.6e-2 if dt == torch.bfloat16 else 1e-4) * scale
-        isz = x.element_size()
-        px_in, px_out = B_ * Hin * Win, B_ * 4 * Hin * Win
-        ops16 = 2 * 9 * C1 * C2 * px_in + 2 * 9 * C2 * C2 * px_out + 4 * 2 * C2 * px_out
-        ops32 = 2 * C2 * Co * px_out
-        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
-        t_ops = (ops16 / peak + ops32 / PEAK_FP32) * 1e3
-        t_bytes = (px_in * C1 * isz + px_out * Co * 4 + 9 * (C1 + C2) * C2 * isz) / HBM_BYTES_S * 1e3
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-        label = (f"{tuple(shape)} {'bf16' if isz == 2 else 'fp32'} -> "
+        label = (f"{tuple(shape)} {'bf16' if dt == torch.bfloat16 else 'fp32'} -> "
                  f"({B_}, {2 * Hin}, {2 * Win}, {Co}) fp32")
-        split = split_site(label, kern, K8_PARTS, 5)
-        rows.append(dict(kernel="K8", shape=label,
-                         max_abs_err=err, max_rel_err=rel, tol=tol,
-                         ok=err <= tol and torch.isfinite(out).all().item(),
-                         ms=split["graph_ms"], ms_eager=cuda_time(kern, 5),
-                         split_ms=split["split_ms"], plain_ms=cuda_time(plain, 2, warmup=1),
-                         library_ms=None, xla_chain_ms=graph_time(xla, 5),
-                         bound_ms=b_ms, bound_by=b_by))
-        del x, out, ref
+        row = dict(kernel="K8" if dt == torch.bfloat16 else "K8 fp32", shape=label,
+                   max_abs_err=err, max_rel_err=rel, tol=tol,
+                   ok=err <= tol and torch.isfinite(out).all().item())
+        del out, ref
+        if timed:
+            isz = x.element_size()
+            px_in, px_out = B_ * Hin * Win, B_ * 4 * Hin * Win
+            conv_ops = 2 * 9 * C1 * C2 * px_in + 2 * 9 * C2 * C2 * px_out
+            up_ops, ops32 = 4 * 2 * C2 * px_out, 2 * C2 * Co * px_out
+            t_conv = ((conv_ops + up_ops) / PEAK_BF16 if dt == torch.bfloat16
+                      else 3 * conv_ops / PEAK_TF32 + up_ops / PEAK_FP32)
+            t_ops = (t_conv + ops32 / PEAK_FP32) * 1e3
+            t_bytes = ((px_in * C1 * isz + px_out * Co * 4 + 9 * (C1 + C2) * C2 * isz)
+                       / HBM_BYTES_S * 1e3)
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            big32 = dt == f32 and B_ == BATCH   # the fp32 cuDNN chain: seconds a call
+            split = split_site(label, kern, K8_PARTS, 5)
+            row = ratios(dict(
+                row, ms=split["graph_ms"], ms_eager=cuda_time(kern, 5),
+                split_ms=split["split_ms"],
+                plain_ms=t0.elapsed_time(t1) if big32 else cuda_time(plain, 2, warmup=1),
+                library_ms=None, xla_chain_ms=graph_time(xla, 2 if big32 else 5),
+                xla_chain_ms_eager=cuda_time(xla, 2 if big32 else 5, warmup=1),
+                bound_ms=b_ms, bound_by=b_by))
+        rows.append(row)
+        del x
     return rows
 
 
@@ -1009,7 +1085,9 @@ def main_path(dev):
     import numpy as np
     import torch
     from align3r_tpu_torch.models.config import VIT_L_512
+    import dataclasses
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.dpt_head import prepare_dpt_head
     from align3r_tpu_torch.ops import edge_loss as el
     from align3r_tpu_torch.ops import fused_site as fs
     from align3r_tpu_torch.pipeline import reconstruct_scene
@@ -1025,6 +1103,10 @@ def main_path(dev):
         for h in (model.downstream_head1, model.downstream_head2):
             h.dpt.head[4].weight.mul_(0.01)   # keep random heads inside expm1's range
     pm = model.prepare(torch.bfloat16, torch.bfloat16)
+    # the same network with fp32 heads (the demo's), for the heads phase
+    pm32 = dataclasses.replace(pm, head_dtype=torch.float32, **{
+        k: prepare_dpt_head(h, torch.float32) for k, h in (
+            ("head1", model.downstream_head1), ("head2", model.downstream_head2))})
     del model
     torch.cuda.empty_cache()
     imgs, priors = synthetic_video()
@@ -1038,7 +1120,7 @@ def main_path(dev):
               variant="flow", niter=300, schedule="linear", lr=0.01,
               scene_kw=scene_kw)
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
-                el.permute_packed, fs.gemm)
+                el.permute_packed, fs.gemm, fs._ln_cuda)
     for c in counters:
         c.launches = 0
     res = reconstruct_scene(imgs, priors, pm, **kw)
@@ -1055,6 +1137,12 @@ def main_path(dev):
     if launches["gemm"] != 4 * launches["attention_site"] + 2 * launches["mlp_site"]:
         raise AssertionError("the GEMM core did not run every projection of K1 and K2: "
                              f"{launches}")
+    # one LayerNorm a site, and a second at each decoder cross site (its
+    # memory's norm_y): an encoder-style block is one K1 and one K2 site, a
+    # decoder layer two K1 and one K2, so K1 - K2 cross sites, 2 K1 in all
+    if launches["_ln_cuda"] != 2 * launches["attention_site"]:
+        raise AssertionError(f"the LayerNorm launch did not run once per normalised "
+                             f"input of K1 and K2: {launches}")
     n_pairs = res.cfg.n_edges
     checks = {
         "pairs": n_pairs == 190,
@@ -1079,7 +1167,7 @@ def main_path(dev):
              "warm_timings_s": warm,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"main: warm run {json.dumps(rates)}", flush=True)
-    return launches, rates, pm, imgs, priors
+    return launches, rates, pm, pm32, imgs, priors
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1476,9 +1564,10 @@ def long_path(dev):
 
 # ----------------------------------------------------------------- phase 8
 
-def heads_path(dev, pm, imgs, priors):
+def heads_path(dev, pm, pm32, imgs, priors):
     """The serving engine with the pipeline DPT heads (see the module
-    docstring) on the main phase's model and frames."""
+    docstring) on the main phase's model and frames; then with fp32 heads
+    (pm32)."""
     import numpy as np
     import torch
     from align3r_tpu_torch.inference.engine import inference
@@ -1488,27 +1577,36 @@ def heads_path(dev, pm, imgs, priors):
 
     pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
     counters = (dp.fused_res_unit, dp.fused_head_final)
-    out, launches, secs = {}, {}, {}
-    for impl in ("xla", "pipeline"):
-        for c in counters:
-            c.launches = 0
-        out[impl] = inference(pairs, pm, imgs, priors, batch_size=BATCH, head_conv_impl=impl)
-        torch.cuda.synchronize()
-        launches[impl] = {c.__name__: c.launches for c in counters}
-    for impl in ("xla", "pipeline", "pipeline", "xla"):    # warm, in turns
-        t0 = time.perf_counter()
-        inference(pairs, pm, imgs, priors, batch_size=BATCH, head_conv_impl=impl)
-        torch.cuda.synchronize()
-        secs.setdefault(impl, []).append(time.perf_counter() - t0)
-    print(f"heads: launches {json.dumps(launches)}", flush=True)
 
-    def med_rel(a, b):   # median |a - b| / (|b| + 1e-3), as the JAX head tests
+    def engines(model):
+        """Each head's outputs and launches (counters zeroed first), then
+        warm engine seconds in turns."""
+        out, launches, secs = {}, {}, {}
+        for impl in ("xla", "pipeline"):
+            for c in counters:
+                c.launches = c.launches_fp32 = 0
+            out[impl] = inference(pairs, model, imgs, priors, batch_size=BATCH,
+                                  head_conv_impl=impl)
+            torch.cuda.synchronize()
+            launches[impl] = {**{c.__name__: c.launches for c in counters},
+                              **{c.__name__ + "_fp32": c.launches_fp32 for c in counters}}
+        for impl in ("xla", "pipeline", "pipeline", "xla"):    # warm, in turns
+            t0 = time.perf_counter()
+            inference(pairs, model, imgs, priors, batch_size=BATCH, head_conv_impl=impl)
+            torch.cuda.synchronize()
+            secs.setdefault(impl, []).append(time.perf_counter() - t0)
+        return out, launches, secs
+
+    def rel(a, b):   # |a - b| / (|b| + 1e-3), as the JAX head tests
         a, b = a.float(), b.float()
-        return ((a - b).abs() / (b.abs() + 1e-3)).median().item()
+        return (a - b).abs() / (b.abs() + 1e-3)
 
-    diffs = {f"{k}.{v}": med_rel(out["pipeline"][k][v], out["xla"][k][v])
-             for k, v in (("pred1", "pts3d"), ("pred1", "conf"),
-                          ("pred2", "pts3d_in_other_view"), ("pred2", "conf"))}
+    keys = (("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view"),
+            ("pred2", "conf"))
+    out, launches, secs = engines(pm)
+    print(f"heads: launches {json.dumps(launches)}", flush=True)
+    diffs = {f"{k}.{v}": rel(out["pipeline"][k][v], out["xla"][k][v]).median().item()
+             for k, v in keys}
     finite = all(torch.isfinite(out["pipeline"][k][v]).all().item()
                  for k in ("pred1", "pred2") for v in out["pipeline"][k])
     del out
@@ -1520,6 +1618,19 @@ def heads_path(dev, pm, imgs, priors):
                             flow_loss_start_epoch=0.1, flow_loss_thre=25, min_conf_thr=1.1))
     res = reconstruct_scene(imgs, priors, pm, inference_kw={"head_conv_impl": "pipeline"}, **kw)
     torch.cuda.synchronize()
+
+    # fp32 heads: cuDNN's convolutions in full fp32 (TF32 off) on the xla side
+    torch.backends.cudnn.allow_tf32 = False
+    out32, launches32, secs32 = engines(pm32)
+    print(f"heads: fp32 launches {json.dumps(launches32)}", flush=True)
+    diffs32, max32 = {}, {}
+    for k, v in keys:
+        r = rel(out32["pipeline"][k][v], out32["xla"][k][v])
+        diffs32[f"{k}.{v}"], max32[f"{k}.{v}"] = r.median().item(), r.max().item()
+    finite32 = all(torch.isfinite(out32["pipeline"][k][v]).all().item()
+                   for k in ("pred1", "pred2") for v in out32["pipeline"][k])
+    del out32
+    torch.cuda.empty_cache()
     checks = {
         "k7_84": launches["pipeline"]["fused_res_unit"] == 84,
         "k8_12": launches["pipeline"]["fused_head_final"] == 12,
@@ -1529,17 +1640,30 @@ def heads_path(dev, pm, imgs, priors):
         "scene_finite": bool(np.isfinite(res.losses).all()
                              and all(np.isfinite(a).all() for a in (
                                  res.get_im_poses(), res.get_focals(), res.get_depthmaps()))),
+        "fp32_k7_84": launches32["pipeline"]["fused_res_unit_fp32"] == 84
+        and launches32["pipeline"]["fused_res_unit"] == 84,
+        "fp32_k8_12": launches32["pipeline"]["fused_head_final_fp32"] == 12
+        and launches32["pipeline"]["fused_head_final"] == 12,
+        "fp32_xla_heads_launch_neither": sum(launches32["xla"].values()) == 0,
+        "fp32_outputs_finite": finite32,
+        "fp32_median_rel_diff_1e-4": all(d <= 1e-4 for d in diffs32.values()),
     }
     stats = {"pairs": len(pairs), "launches": launches["pipeline"],
              "median_rel_diff_vs_xla_heads": diffs,
              "engine_s": {k: v for k, v in secs.items()},
              "pairs_per_s": {k: len(pairs) / min(v) for k, v in secs.items()},
-             "scene_timings_s": res.timings}
+             "scene_timings_s": res.timings,
+             "fp32": {"launches": launches32["pipeline"],
+                      "median_rel_diff_vs_xla_heads": diffs32,
+                      "max_rel_diff_vs_xla_heads": max32,
+                      "engine_s": secs32,
+                      "pairs_per_s": {k: len(pairs) / min(v) for k, v in secs32.items()}}}
     print(f"heads: checks {json.dumps(checks)}", flush=True)
     print(f"heads: stats {json.dumps(stats)}", flush=True)
     if not all(checks.values()):
         raise AssertionError(f"pipeline-head checks failed: {checks}")
-    return launches["pipeline"], stats
+    return {**launches["pipeline"], **{k: v for k, v in launches32["pipeline"].items()
+                                        if k.endswith("_fp32")}}, stats
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1724,18 +1848,22 @@ def main() -> int:
         print("build: ptxas registers and spill bytes " + json.dumps(usage), flush=True)
         print("build: kernels that spill " + json.dumps(
             [k for k, (_, st, ld) in usage.items() if st or ld]), flush=True)
-        sass = hgmma_counts(path, [*CORE_INSTANCES, *ATTN_INSTANCES])
+        sass = hgmma_counts(path, [*CORE_INSTANCES, *TF32_CONV, *ATTN_INSTANCES])
         core_sass = {k: n for k, n in sass.items() if any(c in k for c in CORE_INSTANCES)}
-        attn_sass = {k: n for k, n in sass.items() if k not in core_sass}
+        tf32_sass = {k: n for k, n in sass.items() if any(c in k for c in TF32_CONV)}
+        attn_sass = {k: n for k, n in sass.items() if k not in core_sass and k not in tf32_sass}
         print("build: HGMMA instructions per GEMM-core instance " + json.dumps(core_sass),
+              flush=True)
+        print("build: HGMMA instructions per K7/K8 fp32 conv instance " + json.dumps(tf32_sass),
               flush=True)
         print("build: HGMMA instructions per K9 D=256 backward, K6 fp32 and K9 fp32 kernel "
               + json.dumps(attn_sass), flush=True)
         core = {k: v for k, v in usage.items() if any(n in k for n in CORE_INSTANCES)}
         counts = {n: sum(n in k for k in core) for n in CORE_INSTANCES}
         bad = [k for k, (_, st, ld) in core.items() if st or ld]
+        tf32 = {k: v for k, v in usage.items() if any(n in k for n in TF32_CONV)}
         stray = [k for k in usage if ("gemm" in k or "conv" in k) and k not in core
-                 and "conv3x3_fp32" not in k]
+                 and k not in tf32 and not re.search(FMA_F32, k)]
         edge_spills = [k for k, (_, st, ld) in usage.items() if "edge" in k and (st or ld)]
         if edge_spills:
             return fail(phase, f"K3/K4 kernels spill: {edge_spills}")
@@ -1744,6 +1872,13 @@ def main() -> int:
             return fail(phase, f"GEMM-core instances {counts} ({CORE_INSTANCES} expected); "
                                f"spilling: {bad}; not on the sm90 core: {stray}; without "
                                f"HGMMA: {[k for k, n in core_sass.items() if not n]}")
+        tf32_counts = {n: sum(n in k for k in tf32) for n in TF32_CONV}
+        tf32_bad = [k for k, (_, st, ld) in tf32.items() if st or ld]
+        if (tf32_counts != TF32_CONV or tf32_bad or sorted(tf32_sass) != sorted(tf32)
+                or not all(tf32_sass.values())):
+            return fail(phase, f"fp32 conv instances {tf32_counts} ({TF32_CONV} expected); "
+                               f"spilling: {tf32_bad}; without HGMMA: "
+                               f"{[k for k, n in tf32_sass.items() if not n]}")
         attn = {k: v for k, v in usage.items() if any(re.search(p, k) for p in ATTN_INSTANCES)}
         attn_counts = {p: sum(bool(re.search(p, k)) for k in attn) for p in ATTN_INSTANCES}
         attn_bad = [k for k, (_, st, ld) in attn.items() if st or ld]
@@ -1753,7 +1888,7 @@ def main() -> int:
                 or sorted(attn_sass) != sorted(attn) or not all(attn_sass.values())):
             return fail(phase, f"attention instances {attn_counts} ({ATTN_INSTANCES} "
                                f"expected); spilling: {attn_bad}; bf16 WMMA backward: {wmma}; "
-                               f"FMA fp32 attention: {fma}; "
+                               f"FMA fp32 attention or conv: {fma}; "
                                f"without HGMMA: {[k for k, n in attn_sass.items() if not n]}")
 
         phase = "kernels"
@@ -1777,7 +1912,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase = "main"
-        launches, rates, pm, imgs, priors = main_path(dev)
+        launches, rates, pm, pm32, imgs, priors = main_path(dev)
         torch.cuda.empty_cache()
 
         phase = "flow"
@@ -1785,8 +1920,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         phase = "heads"
-        heads_launches, heads_stats = heads_path(dev, pm, imgs, priors)
-        del pm
+        heads_launches, heads_stats = heads_path(dev, pm, pm32, imgs, priors)
+        del pm, pm32
         torch.cuda.empty_cache()
 
         phase = "demo"
@@ -1844,17 +1979,23 @@ def main() -> int:
         "K5": ("permute_packed", src + "permute_packed.cu", "align3r_tpu/ops/edge_loss.py:417"),
         "K6": ("small_attention", src + "small_attention.cu",
                "align3r_tpu/ops/small_attention.py:47"),
+        "K1/K2 LN": ("_ln_cuda", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:78"),
         "K7": ("fused_res_unit", src + "dpt_pipeline.cu",
                "align3r_tpu/ops/dpt_pipeline.py:101"),
+        "K7 fp32": ("fused_res_unit_fp32", src + "dpt_pipeline.cu",
+                    "align3r_tpu/ops/dpt_pipeline.py:101"),
         "K8": ("fused_head_final", src + "dpt_pipeline.cu",
                "align3r_tpu/ops/dpt_pipeline.py:319"),
+        "K8 fp32": ("fused_head_final_fp32", src + "dpt_pipeline.cu",
+                    "align3r_tpu/ops/dpt_pipeline.py:319"),
         "K9": ("flash_attention", src + "flash_attention.cu",
                "align3r_tpu/ops/attention.py:44"),
         "K9 bwd": ("flash_attention_bwd", src + "flash_attention.cu",
                    "align3r_tpu/ops/attention.py:44"),
     }
     paths = {"K5": flow_launches, "K6": train_launches, "K7": heads_launches,
-             "K8": heads_launches, "K9": long_launches, "K9 bwd": long_launches}
+             "K7 fp32": heads_launches, "K8": heads_launches, "K8 fp32": heads_launches,
+             "K9": long_launches, "K9 bwd": long_launches}
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
@@ -1871,7 +2012,8 @@ def main() -> int:
                             "library_ms", "library_ms_eager", "ms_over_library", "k6_ms",
                             "same_bits",
                             "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
-                            "products_bound", "xla_chain_ms", "split_ms", "bound_ms", "bound_by",
+                            "products_bound", "xla_chain_ms", "xla_chain_ms_eager", "split_ms",
+                            "bound_ms", "bound_by",
                             "max_abs_err", "tiles", "rounds", "tflops")}
                                    for r in mine]})
     print(card, flush=True)

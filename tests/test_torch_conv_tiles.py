@@ -154,25 +154,24 @@ def test_head_launches_are_head_final_plain(dtype):
 
 
 def test_gate_constants_are_the_kernels():
-    """EPI_*, MAX_C3, CONV_BW and FMA_BK are csrc/dpt_pipeline.cu's enum Epi,
-    MAX_C3, CONV_BW and BKC; CONV_BM, CONV_BN, CONV_BK are gemm.cuh's GBM,
+    """EPI_*, MAX_C3, CONV_BW and TF32_BK are csrc/dpt_pipeline.cu's enum Epi,
+    MAX_C3, CONV_BW and TBK; CONV_BM, CONV_BN, CONV_BK are gemm.cuh's GBM,
     GBN, GBK; the C entry refuses what the gate refuses (Cin % GBK in bf16,
-    Cin % BKC in fp32, Cout % GBN, C3 > MAX_C3), chooses the box as
+    Cin % TBK in fp32, Cout % GBN, C3 > MAX_C3), chooses the box as
     conv_box does, and the bf16 path keeps no WMMA kernel."""
     cu = (CSRC / "dpt_pipeline.cu").read_text()
     cuh = (CSRC / "gemm.cuh").read_text()
     const = lambda src, name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-    bkc = int(re.search(r"constexpr int BM = \d+, BN = \d+, BKC = (\d+);", cu).group(1))
     assert (dp.CONV_BM, dp.CONV_BN, dp.CONV_BK) == (const(cuh, "GBM"), const(cuh, "GBN"),
                                                     const(cuh, "GBK"))
-    assert (dp.MAX_C3, dp.CONV_BW, dp.FMA_BK) == (const(cu, "MAX_C3"), const(cu, "CONV_BW"),
-                                                  bkc)
+    assert (dp.MAX_C3, dp.CONV_BW, dp.TF32_BK) == (const(cu, "MAX_C3"), const(cu, "CONV_BW"),
+                                                   const(cu, "TBK"))
     enum = re.search(r"enum Epi : int \{([^}]*)\}", cu).group(1)
     assert {k: int(v) for k, v in re.findall(r"(EPI_\w+) = (\d+)", enum)} == {
         "EPI_ROUND": dp.EPI_ROUND, "EPI_RESID": dp.EPI_RESID, "EPI_HEAD": dp.EPI_HEAD,
         "EPI_RELU": dp.EPI_RELU}
     entry = cu[cu.index("A3R_EXPORT int a3r_conv3x3("):cu.index("A3R_EXPORT int a3r_upsample2x(")]
-    for check in ("is_bf16 ? GBK : BKC", "Cin % bk", "Cout % GBN", "C3 > MAX_C3",
+    for check in ("is_bf16 ? GBK : TBK", "Cin % bk", "Cout % GBN", "C3 > MAX_C3",
                   "conv_box_w(W)", "bh = GBM / bw"):
         assert check in entry, check
     box = cu[cu.index("inline int conv_box_w("):]

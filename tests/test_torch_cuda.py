@@ -28,8 +28,11 @@ path's shapes, K = 4096 (the ring wraps many times), N = 128 (one tile) and
 that give the same bits, and the inputs it refuses; for K7 and K8, pixel counts that are not a multiple of
 the 128-pixel conv tile, K7 at each refinenet level's width (128, 64, 32,
 16) with a ragged height, K8 at widths that are not a multiple of the
-box width, that the bf16 convs launch the sm90 conv kernels (by the
-profiler's kernel names) and the input channels the bf16 path refuses.
+box width, that the bf16 convs launch the sm90 conv kernels and the fp32
+ones the 3xTF32 kernel (by the profiler's kernel names), each fp32 epilogue
+alone (two launches giving the same bits) and the input channels the bf16
+path refuses; for K1/K2's LayerNorm launch, the recipe shapes, C = 128 and
+row counts that are not a multiple of the warps.
 Tolerances as in chip_smoke.py: 2 bf16 ulps of the largest output for
 K1/K2/K6/K7/K8/K9 in bf16 (the kernels and the plain versions round at the
 same points after fp32 sums in another order), 1e-4 of the largest value
@@ -881,8 +884,9 @@ def _kernel_names(fn):
 
 def test_bf16_convs_launch_the_sm90_kernels(dev):
     """K7's and K8's bf16 convs run on the GEMM core's conv instances
-    (conv_sm90<EPI>: relu, resid; round, head), the fp32 ones on the FMA
-    kernel, and each path's upsample on the 16-byte kernel."""
+    (conv_sm90<EPI>: relu, resid; round, head), the fp32 ones on the 3xTF32
+    kernel (conv_tf32_sm90<EPI>), and each path's upsample on the 16-byte
+    kernel."""
     g = torch.Generator(device=dev).manual_seed(13)
     bf = torch.bfloat16
     v = torch.randn(1, 9, 16, 256, generator=g, device=dev).to(bf)
@@ -892,13 +896,102 @@ def test_bf16_convs_launch_the_sm90_kernels(dev):
     p2 = (torch.randn(128, 128, 3, 3, generator=g, device=dev) / 34, torch.zeros(128, device=dev))
     p3 = (torch.randn(4, 128, 1, 1, generator=g, device=dev) / 11, torch.zeros(4, device=dev))
     for dtype, want in ((bf, ("conv_sm90<3>", "conv_sm90<1>", "conv_sm90<0>", "conv_sm90<2>")),
-                        (torch.float32, ("conv3x3_fp32<3, true>", "conv3x3_fp32<1, false>",
-                                         "conv3x3_fp32<0, false>", "conv3x3_fp32<2, false>"))):
+                        (torch.float32, ("conv_tf32_sm90<3>", "conv_tf32_sm90<1>",
+                                         "conv_tf32_sm90<0>", "conv_tf32_sm90<2>"))):
         names = _kernel_names(lambda: (dp.fused_res_unit(v.to(dtype), unit, v.to(dtype)),
                                        dp.fused_head_final(x.to(dtype), p1, p2, p3)))
         convs = [n for n in names if "conv" in n]
         assert len(convs) == 4 and all(sum(w in c for c in convs) == 1 for w in want), convs
         assert sum("upsample2x_kernel" in n for n in names) == 1
+
+
+@pytest.mark.parametrize("epi", ["round", "relu", "resid", "resid+base", "head"])
+@pytest.mark.parametrize("shape", [(2, 9, 16, 256), (1, 9, 11, 128), (1, 5, 128, 256),
+                                   (1, 7, 32, 128)])
+def test_conv_tf32_epilogues(dev, shape, epi):
+    """Each fp32 conv launch alone (conv_tf32_sm90<EPI>) against
+    conv3x3_plain at 1e-4 of the largest value: the ragged 9-row level, W = 11
+    in a 16-wide box, two output-channel tiles at Cout 256 (one for the head);
+    two launches give the same bits."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(16)
+    B, H, W, Cin = shape
+    Cout = 128 if epi == "head" else Cin
+    x, resid, base = (torch.randn(B, H, W, n, generator=g, device=dev) for n in (Cin, Cout, Cout))
+    taps = torch.randn(9, Cin, Cout, generator=g, device=dev) / (3 * Cin ** 0.5)
+    bias = 0.1 * torch.randn(Cout, generator=g, device=dev)
+    w3 = torch.randn(Cout, 4, generator=g, device=dev) / 11
+    b3 = 0.1 * torch.randn(4, generator=g, device=dev)
+    e, relu = {"round": (dp.EPI_ROUND, False), "relu": (dp.EPI_RELU, True),
+               "resid": (dp.EPI_RESID, False), "resid+base": (dp.EPI_RESID, False),
+               "head": (dp.EPI_HEAD, False)}[epi]
+    kw = dict(resid=resid if e == dp.EPI_RESID else None,
+              base=base if epi == "resid+base" else None,
+              w3=w3 if e == dp.EPI_HEAD else None, b3=b3 if e == dp.EPI_HEAD else None)
+
+    def launch():
+        out = torch.empty(B, H, W, 4 if e == dp.EPI_HEAD else Cout, device=dev)
+        dp._conv(x, taps, bias, out, e, relu, **kw)
+        return out
+
+    out, again = launch(), launch()
+    ref = dp.conv3x3_plain(x, taps, bias, e, relu_in=relu, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close(out, ref, torch.float32)
+
+
+def _ln_inputs(g, dev, G, rows, C):
+    x = torch.randn(G, 1, rows, C, generator=g, device=dev).to(torch.bfloat16)
+    return x, (1 + 0.1 * torch.randn(G, C, generator=g, device=dev),
+               0.1 * torch.randn(G, C, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("G, rows, C", [(1, 9216, 1024), (2, 18432, 768), (1, 1000, 128),
+                                        (2, 1001, 768), (3, 77, 1024), (1, 5, 264)])
+def test_layernorm_launch(dev, G, rows, C):
+    """K1/K2's LayerNorm launch against _ln at the encoder's and decoder's
+    recipe shapes, the parity phase's C = 128, and row counts that are not a
+    multiple of the warps, one stream's rows ending inside a warp's walk and
+    a C that leaves lanes idle, within 2 bf16 ulps of the largest value (fp32
+    statistics summed in another order, one rounding); each launch counts
+    once."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    x, p = _ln_inputs(g, dev, G, rows, C)
+    before = fs._ln_cuda.launches
+    from align3r_tpu_torch.ops import _lib
+    out = fs._ln_cuda(_lib.library(), x, p, _lib.stream())
+    ref = fs._ln(x, p)
+    torch.cuda.synchronize()
+    assert fs._ln_cuda.launches == before + 1 and out.dtype == torch.bfloat16
+    _bf16_close(out, ref)
+
+
+def test_layernorm_refuses_misaligned_pointers(dev):
+    """The LayerNorm launch makes 16-byte loads and stores: a3r_layernorm
+    refuses an x, scale, bias or y pointer off a 16-byte boundary with
+    cudaErrorInvalidValue (the context stays usable), and _ln_cuda copies a
+    misaligned x to an aligned one and still matches _ln."""
+    from align3r_tpu_torch.ops import _lib
+    g = torch.Generator(device=dev).manual_seed(18)
+    G, rows, C = 1, 77, 768
+    x, p = _ln_inputs(g, dev, G, rows, C)
+    buf = torch.empty(x.numel() + 8, device=dev, dtype=torch.bfloat16)
+    xm = buf[1:1 + x.numel()].view(x.shape)
+    xm.copy_(x)
+    scale, bias = (t.float().contiguous() for t in p)
+    y = torch.empty_like(x)
+    lib = _lib.library()
+    ptrs = [x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr()]
+    for i in range(4):
+        bad = list(ptrs)
+        bad[i] += 4
+        rc = lib.a3r_layernorm(*bad, rows, G * rows, C, 1e-6, _lib.stream())
+        assert rc == 1, (i, rc)   # cudaErrorInvalidValue
+    out = fs._ln_cuda(lib, xm, p, _lib.stream())
+    ref = fs._ln(x, p)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
 
 
 def test_conv_refuses_unsupported(dev):
