@@ -92,6 +92,71 @@ def _dlt_pose(X, xn):
     return R, P[:, 3] / S.mean()
 
 
+def _kabsch(P, C):
+    """The rotation and translation taking points P (m, 3) onto C (m, 3)."""
+    pc, cc = P.mean(0), C.mean(0)
+    U, _, Vt = np.linalg.svd((P - pc).T @ (C - cc))
+    R = Vt.T @ np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))]) @ U.T
+    return R, cc - R @ pc
+
+
+def _p3p(X, xn):
+    """World->camera poses [R | t] that put 3 points X (3, 3) on the rays
+    of the normalised image points xn (3, 2): Grunert's system. With d2 =
+    u d1, d3 = v d1 the distances along the unit rays j1..j3, the law of
+    cosines over the sides a = |X2 - X3|, b = |X1 - X3|, c = |X1 - X2| gives
+    two quadratics in u whose coefficients are polynomials in v; their
+    resultant is a quartic in v (scaled so that b = 1), each positive real
+    root gives u from their difference, then the camera-frame points and
+    the rigid fit. Up to four poses."""
+    from numpy.polynomial import polynomial as P
+    j = np.concatenate([xn, np.ones((3, 1))], axis=1)
+    j /= np.linalg.norm(j, axis=1, keepdims=True)
+    b = np.linalg.norm(X[0] - X[2])
+    if b < 1e-12:
+        return []
+    a, c = np.linalg.norm(X[1] - X[2]) / b, np.linalg.norm(X[0] - X[1]) / b
+    ca, cb, cg = j[1] @ j[2], j[0] @ j[2], j[0] @ j[1]
+    # b^2 u^2 + p1 u + p0 = 0 and b^2 u^2 + q1 u + q0 = 0 (b = 1)
+    p1, p0 = np.array([0.0, -2 * ca]), np.array([-a * a, 2 * a * a * cb, 1 - a * a])
+    q1, q0 = np.array([-2 * cg]), np.array([1 - c * c, 2 * c * c * cb, -c * c])
+    res = P.polysub(P.polymul(P.polysub(q0, p0), P.polysub(q0, p0)),
+                    P.polymul(P.polysub(q1, p1), P.polysub(P.polymul(p1, q0),
+                                                          P.polymul(q1, p0))))
+    poses = []
+    for v in P.polyroots(res):
+        if abs(v.imag) > 1e-6 * max(1.0, abs(v)) or v.real <= 0:
+            continue
+        v = v.real
+        den = P.polyval(v, P.polysub(p1, q1))
+        if abs(den) < 1e-12:
+            continue
+        u = (P.polyval(v, q0) - P.polyval(v, p0)) / den
+        s2 = 1 + v * v - 2 * v * cb
+        if u <= 0 or s2 <= 0:
+            continue
+        d1 = b / np.sqrt(s2)
+        poses.append(_kabsch(X, np.array([d1, u * d1, v * d1])[:, None] * j))
+    return poses
+
+
+def _minimal_pose(X, xn):
+    """World->camera [R | t] from m >= 4 points: the DLT from 6 or more;
+    from 4 or 5, the P3P pose of the first three that puts the others
+    nearest their image points (None if none has every point in front)."""
+    if len(X) >= 6:
+        return _dlt_pose(X, xn)
+    best, best_err = None, np.inf
+    for R, t in _p3p(X[:3], xn[:3]):
+        cam = X @ R.T + t
+        if (cam[:, 2] <= 1e-9).any():
+            continue
+        err = np.linalg.norm(cam[:, :2] / cam[:, 2:] - xn, axis=1).sum()
+        if err < best_err:
+            best, best_err = (R, t), err
+    return best
+
+
 def _skew(v):
     return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
 
@@ -127,11 +192,14 @@ def _refine_pose(R, t, X, pixels, f, pp, iters: int = 10):
     return R, t
 
 
+MIN_PNP_POINTS = 4   # the reference's (and cv2's) minimum for a pose
+
+
 def fast_pnp(pts3d: np.ndarray, focal: Optional[float], msk: np.ndarray,
              pp=None, niter_PnP: int = 10, seed: int = 0):
     """RANSAC-PnP pose recovery (reference init_im_poses.py:442-482).
     Returns (focal, cam2world 4x4) or None."""
-    if msk.sum() < 6:
+    if msk.sum() < MIN_PNP_POINTS:
         return None
     H, W, _ = pts3d.shape
     u, v = np.meshgrid(np.arange(W), np.arange(H))
@@ -146,12 +214,13 @@ def fast_pnp(pts3d: np.ndarray, focal: Optional[float], msk: np.ndarray,
     for f in focals:
         xn = (pixels - np.asarray(pp, np.float64)) / f
         f_best = (0,)
-        # niter_PnP minimal samples, plus one hypothesis fitted to every
-        # masked point (a 6-point DLT is ill-conditioned on narrow views)
-        samples = [rng.choice(len(X), size=6, replace=False)
+        # niter_PnP minimal samples (6 points for the DLT, else 4), plus one
+        # hypothesis fitted to every masked point (a 6-point DLT is
+        # ill-conditioned on narrow views)
+        samples = [rng.choice(len(X), size=6 if len(X) >= 6 else 4, replace=False)
                    for _ in range(niter_PnP)] + [np.arange(len(X))]
         for sample in samples:
-            pose = _dlt_pose(X[sample], xn[sample])
+            pose = _minimal_pose(X[sample], xn[sample])
             if pose is None:
                 continue
             R, t = _refine_pose(*pose, X[sample], pixels[sample], f, pp)
@@ -163,9 +232,9 @@ def fast_pnp(pts3d: np.ndarray, focal: Optional[float], msk: np.ndarray,
             inl = ok & (err < 5.0)
             if inl.sum() > f_best[0]:
                 f_best = (int(inl.sum()), inl, R, t)
-        if f_best[0] >= 6 and f_best[0] > best[0]:
+        if f_best[0] >= MIN_PNP_POINTS and f_best[0] > best[0]:
             inl = f_best[1]
-            pose = _dlt_pose(X[inl], xn[inl])
+            pose = _minimal_pose(X[inl], xn[inl])
             if pose is not None:
                 # at a focal near zero every point projects to the principal
                 # point whatever the pose, and a DLT can put the camera ~1e27

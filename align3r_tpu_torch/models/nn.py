@@ -94,3 +94,54 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool):
     m[np.arange(out_size), lo] += (1 - w)
     m[np.arange(out_size), hi] += w
     return m
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel with a = -0.5 (jax.image's "bicubic"; torch's
+    bicubic takes a = -0.75), on |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x):
+    return torch.clamp(1.0 - x, min=0.0)
+
+
+_RESIZE_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def resize_weights(in_size: int, out_size: int, method: str = "bilinear", device=None):
+    """(in, out) fp32 weights of jax.image.resize along one axis
+    (jax/_src/image/scale.py compute_weight_mat): half-pixel centres, the
+    kernel widened by in/out when shrinking (antialiasing), each column
+    normalised to sum 1, and columns whose sample lies outside the input
+    zeroed."""
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    kscale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs() / kscale
+    w = _RESIZE_KERNELS[method](x)
+    tot = w.sum(0, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(tot != 0, tot, torch.ones_like(tot)), torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def resize(x, out_h: int, out_w: int, method: str = "bilinear"):
+    """jax.image.resize(x, (B, out_h, out_w[, C]), method) of an NHWC (or
+    (B, H, W)) fp32 tensor: one product with resize_weights per axis whose
+    size changes. Unlike F.interpolate it antialiases when it shrinks, and
+    its bicubic is Keys' a = -0.5."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[..., None]
+    H, W = x.shape[1:3]
+    if out_h != H:
+        x = torch.einsum("hH,bhwc->bHwc",
+                         resize_weights(H, out_h, method, x.device).to(x.dtype), x)
+    if out_w != W:
+        x = torch.einsum("wW,bhwc->bhWc",
+                         resize_weights(W, out_w, method, x.device).to(x.dtype), x)
+    return x[..., 0] if squeeze else x

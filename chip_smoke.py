@@ -128,6 +128,28 @@ final result line:
                 trajectories and depths finite. Prints each stage's seconds
                 (weights, load, engine, init, solve, writers, hierarchical
                 total) and the card.
+ 11. prior    - the monocular priors on the demo phase's frames, with seeded
+                random weights at full width: K9's fp32 forward (every
+                DINOv2 attention of the priors takes it) against its plain
+                version at the priors' five shapes (PRIOR_SHAPES), timed from
+                a CUDA graph beside SDPA in fp32; Depth Anything V2 Large
+                through tools.prior_depth.main on the 12 frames at batch 4,
+                and Depth Pro at the published geometry (ViT-L patch 16 at
+                384, config_from_hf_depth_pro of PUBLISHED_HF_CONFIG) on
+                DP_FRAMES = 4 of them at batch 1 (the cut: 37 ViT-L passes a
+                frame). K9's counters are zeroed before each call: 24 forwards
+                a ViT pass (one a layer), 0 backwards, 0 K6. Each model runs
+                again with plain attention (attn_impl "xla"); the depth's and
+                the focal's median relative difference must stay within
+                PRIOR_REL_TOL = 1e-4. Every .npz must exist with a finite
+                depth of the frame's size and a finite focal. Then
+                tools.demo on the Depth Anything priors (--depth_prior_name
+                depthanything; K1-K5 must launch), and tools.demo_refine on
+                the 4 Depth Pro frames with a seeded full-width PromptDA that
+                utils.hf_weights wrote as a local folder (24 K9 forwards a
+                batch of 2, one refined map a frame at 1024x576). Prints
+                seconds per frame of each prior, the refine step's stage
+                seconds, and the card.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base, in bf16 and fp32), K8 (the head tail at the main path's shape, bf16
 and fp32, and at (4, 72, 128, 256) fp32), both timed from a CUDA graph and
@@ -1822,6 +1844,237 @@ def demo_path(dev, card):
     return stats
 
 
+# ---------------------------------------------------------------- phase 11
+# K9's fp32 forward at the monocular priors' DINOv2 attentions (D = 64, 16
+# heads): Depth Pro's patch encoder (35 crops a frame) at --batch_size 1 and
+# 4, its image and FOV encoders, Depth Anything V2 at 518x924 (batch 4) and
+# PromptDA at 574x1022 (batch 2)
+PRIOR_SHAPES = (("Depth Pro patch encoder, batch 1", (35, 16, 577, 64)),
+                ("Depth Pro patch encoder, batch 4", (140, 16, 577, 64)),
+                ("Depth Pro image / FOV encoder, batch 1", (1, 16, 577, 64)),
+                ("Depth Anything V2 518x924, batch 4", (4, 16, 2443, 64)),
+                ("PromptDA 574x1022, batch 2", (2, 16, 2994, 64)))
+DP_FRAMES = 4          # Depth Pro's cut: 37 ViT-L passes a frame
+PRIOR_REL_TOL = 1e-4   # median relative difference, K9 against plain attention
+
+
+def check_k9_prior(dev, gen):
+    """K9's fp32 forward against flash_attention_plain at PRIOR_SHAPES
+    (1e-4 x max), timed from a CUDA graph beside scaled_dot_product_attention
+    in fp32 and the plain version; bound 3 TF32 products a product at
+    PEAK_TF32, or the bytes."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import flash_attention as fa
+    rows = []
+    for name, shape in PRIOR_SHAPES:
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev) for _ in range(3))
+        (o, _), (ro, _) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        e = max_err(o, ro)
+        B_, H_, N_, D_ = shape
+        heads = B_ * H_
+        b_ms, b_by = bound(4 * heads * N_ * D_ * 4 + heads * N_ * 4,
+                           3 * 4 * heads * N_ * N_ * D_, PEAK_TF32)
+        kern = lambda: fa.flash_attention_fwd(q, k, v)
+        rows.append(ratios(dict(
+            kernel="K9 fp32", shape=f"{name} {tuple(shape)} fp32", max_abs_err=e[0],
+            max_rel_err=e[1], tol=1e-4 * e[2],
+            ok=e[0] <= 1e-4 * e[2] and torch.isfinite(o).all().item(),
+            ms=graph_time(kern, 10), ms_eager=cuda_time(kern, 10),
+            plain_ms=cuda_time(lambda: fa.flash_attention_plain(q, k, v), 2),
+            library_ms=graph_time(lambda: F.scaled_dot_product_attention(q, k, v), 10),
+            bound_ms=b_ms, bound_by=b_by)))
+        del q, k, v, o, ro
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _copy_frames(src, dst, n=None):
+    import shutil
+    os.makedirs(dst)
+    names = sorted(f for f in os.listdir(src) if f.endswith(".png"))[:n]
+    for f in names:
+        shutil.copy(os.path.join(src, f), dst)
+    return names
+
+
+def _rel_diff(a, b):
+    """Median over entries of |a - b| / |b| (entries where b != 0)."""
+    import numpy as np
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    nz = b != 0
+    return float(np.median(np.abs(a[nz] - b[nz]) / np.abs(b[nz]))) if nz.any() else 0.0
+
+
+def prior_path(dev, card, rows):
+    """The monocular priors and the tools around them (see the module
+    docstring), on the demo phase's frames."""
+    import dataclasses
+    import numpy as np
+    import shutil
+    import torch
+    from align3r_tpu_torch.models import depth_anything as tda
+    from align3r_tpu_torch.models import depth_pro as tdp
+    from align3r_tpu_torch.models.prompt_da import PromptDepthAnything
+    from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import flash_attention as fa
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+    from align3r_tpu_torch.tools import demo, demo_refine, prior_depth
+    from align3r_tpu_torch.utils import hf_weights
+
+    phase_t0 = time.perf_counter()
+    k9 = check_k9_prior(dev, torch.Generator(device=dev).manual_seed(11))
+    for r in k9:
+        print("prior: " + json.dumps(r), flush=True)
+    rows += k9
+    if not all(r["ok"] for r in k9):
+        raise AssertionError("K9 fp32 forward out of tolerance at the prior shapes")
+
+    base = os.path.join(HERE, "build", "prior")
+    shutil.rmtree(base, ignore_errors=True)
+    frames = os.path.join(HERE, "build", "demo", "frames")
+    attn = (fa.flash_attention, fa.flash_attention_bwd, sa.small_attention)
+    stats, checks, launches = {"card": card}, {}, {}
+
+    def counted(tag, fn):
+        for c in attn:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[tag] = {c.__name__: c.launches for c in attn}
+        print(f"prior: {tag} launches {json.dumps(launches[tag])}", flush=True)
+        return out
+
+    def run_prior(tag, prior, model, n_frames, batch, passes, layers):
+        """prior_depth.main on a copy of n_frames frames with K9 ("auto"),
+        then on another copy with plain attention; checks and differences.
+        One K9 forward a layer of each of `passes` ViT passes."""
+        names = _copy_frames(frames, os.path.join(base, tag), n_frames)
+        _copy_frames(frames, os.path.join(base, tag + "_xla"), n_frames)
+        argv = ["--depth_prior_name", prior, "--batch_size", str(batch)]
+        model[0].attn_impl = "auto"
+        res = counted(tag, lambda: prior_depth.main(
+            argv + ["--input_dir", os.path.join(base, tag)], model=model))
+        model[0].attn_impl = "xla"
+        ref = prior_depth.main(argv + ["--input_dir", os.path.join(base, tag + "_xla")],
+                               model=model)
+        model[0].attn_impl = "auto"
+        got = [np.load(f) for f in res["files"]]
+        want = [np.load(f) for f in ref["files"]]
+        checks[tag + "_npz"] = len(got) == len(names) == n_frames and all(
+            os.path.isfile(os.path.join(base, tag, os.path.splitext(f)[0]
+                                        + f"_pred_depth_{prior}.npz")) for f in names)
+        checks[tag + "_finite"] = all(
+            np.isfinite(z["depth"]).all() and np.isfinite(z["focallength_px"])
+            and z["depth"].shape == DEMO_HW for z in got)
+        checks[tag + "_launches"] = (launches[tag]["flash_attention"] == layers * passes
+                                     and launches[tag]["flash_attention_bwd"] == 0
+                                     and launches[tag]["small_attention"] == 0)
+        d_rel = _rel_diff(np.stack([z["depth"] for z in got]),
+                          np.stack([z["depth"] for z in want]))
+        f_rel = _rel_diff([z["focallength_px"] for z in got],
+                          [z["focallength_px"] for z in want])
+        checks[tag + "_matches_plain_attention"] = d_rel <= PRIOR_REL_TOL and f_rel <= PRIOR_REL_TOL
+        t = res["timings"]
+        stats[tag] = {"frames": n_frames, "batch": batch, "vit_passes": passes,
+                      "k9_launches": launches[tag]["flash_attention"],
+                      "depth_median_rel_diff_vs_plain": d_rel,
+                      "focal_median_rel_diff_vs_plain": f_rel,
+                      "depth_range": [float(min(z["depth"].min() for z in got)),
+                                      float(max(z["depth"].max() for z in got))],
+                      "focal_px": [float(z["focallength_px"]) for z in got],
+                      "s_per_frame": (t["frames_s"] + t["model_s"] + t["write_s"]) / n_frames,
+                      "model_s_per_frame": t["model_s"] / n_frames,
+                      "model_s_per_frame_plain_attention": ref["timings"]["model_s"] / n_frames,
+                      **t}
+        print(f"prior: {tag} {json.dumps(stats[tag])}", flush=True)
+
+    # Depth Anything V2 Large, seeded, on all 12 frames at batch 4 (24 K9
+    # forwards a batch: one ViT-L pass)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        da = tda.init_prior_(tda.DepthAnything(tda.DA_V2_LARGE).eval(), seed=0)
+    torch.cuda.synchronize()
+    stats["da_init_s"] = time.perf_counter() - t0
+    run_prior("depthanything", "depthanything", (da, tda.DA_V2_LARGE), DEMO_FRAMES, 4,
+              -(-DEMO_FRAMES // 4), tda.DA_V2_LARGE.num_layers)
+    del da
+    torch.cuda.empty_cache()
+
+    # Depth Pro at the published geometry (ViT-L patch 16 at 384, as
+    # config_from_hf_depth_pro builds it), DP_FRAMES frames at batch 1: 35
+    # crops through the patch encoder, the image and the FOV encoders, 3 ViT
+    # passes a frame
+    t0 = time.perf_counter()
+    dp_cfg = tdp.config_from_hf_depth_pro(tdp.PUBLISHED_HF_CONFIG)
+    with torch.device(dev):
+        dp = tda.init_prior_(tdp.DepthPro(dp_cfg).eval(), seed=1)
+    torch.cuda.synchronize()
+    stats["dp_init_s"] = time.perf_counter() - t0
+    run_prior("depthpro", "depthpro", (dp, dp_cfg), DP_FRAMES, 1, 3 * DP_FRAMES,
+              dp_cfg.patch_model.num_layers)
+    del dp
+    torch.cuda.empty_cache()
+
+    # the demo on the Depth Anything priors just written
+    kernels = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
+               el.permute_packed)
+    ckpt = os.path.join(HERE, "build", "demo", "vit_l_512_seed0.pth")
+    t0 = time.perf_counter()
+    pm = demo.load_model(ckpt, 512, dev)
+    stats["align3r_weights_s"] = time.perf_counter() - t0
+    for c in kernels:
+        c.launches = 0
+    out = demo.main(["--input_dir", os.path.join(base, "depthanything"), "--output_dir",
+                     os.path.join(base, "demo_da"), "--image_size", "512", "--niter", "300",
+                     "--seq_name", "synthetic", "--depth_prior_name", "depthanything",
+                     "--silent"], model=pm)
+    torch.cuda.synchronize()
+    launches["demo_depthanything"] = {c.__name__: c.launches for c in kernels}
+    traj = np.loadtxt(os.path.join(out["out_dir"], "pred_traj.txt"))
+    checks["demo_depthanything"] = (traj.shape == (DEMO_FRAMES, 8) and bool(np.isfinite(traj).all())
+                                    and all(launches["demo_depthanything"].values()))
+    stats["demo_depthanything"] = out["timings"]
+
+    # the refine tool with a seeded full-width PromptDA written as a local HF
+    # folder, on the Depth Pro frames (their .npz priors are the tool's)
+    t0 = time.perf_counter()
+    pda_cfg = dataclasses.replace(tda.DA_V2_LARGE, depth_estimation_type="metric")
+    with torch.device(dev):
+        pda = tda.init_prior_(PromptDepthAnything(pda_cfg).eval(), seed=2)
+    pda_dir = os.path.join(base, "promptda_vitl_seed2")
+    hf_weights.save_pretrained(pda_dir, tda.hf_config(pda_cfg, "prompt_depth_anything"),
+                               pda.state_dict())
+    del pda
+    torch.cuda.empty_cache()
+    stats["promptda_write_s"] = time.perf_counter() - t0
+    out = counted("refine", lambda: demo_refine.main(
+        ["--input_dir", os.path.join(base, "depthpro"), "--output_dir",
+         os.path.join(base, "refine"), "--image_size", "512", "--niter", "300",
+         "--seq_name", "synthetic", "--promptda_model", pda_dir, "--silent"], model=pm))
+    del pm
+    refined = out["refined"]
+    checks["refine"] = (refined.shape == (DP_FRAMES, *DEMO_HW) and bool(np.isfinite(refined).all())
+                        and len([f for f in os.listdir(out["out_dir"])
+                                 if f.endswith("_refined.npy")]) == DP_FRAMES
+                        and launches["refine"]["flash_attention"]
+                        == pda_cfg.num_layers * -(-DP_FRAMES // 2)
+                        and launches["refine"]["flash_attention_bwd"] == 0)
+    stats["refine"] = {**out["timings"], "k9_launches": launches["refine"]["flash_attention"],
+                       "refine_s_per_frame": out["timings"]["refine_s"] / DP_FRAMES}
+    stats["launches"] = launches
+    stats["phase_s"] = time.perf_counter() - phase_t0
+    print(f"prior: checks {json.dumps(checks)}", flush=True)
+    print(f"prior: stage seconds {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"prior checks failed: {checks}")
+    k9_launches = {"flash_attention": sum(launches[t]["flash_attention"]
+                                          for t in ("depthanything", "depthpro", "refine"))}
+    return k9_launches, stats
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "align3r_tpu_torch")):
         return fail("setup", "align3r_tpu_torch/ is not beside chip_smoke.py: "
@@ -1928,6 +2181,10 @@ def main() -> int:
         demo_stats = demo_path(dev, card)
         torch.cuda.empty_cache()
 
+        phase = "prior"
+        prior_launches, prior_stats = prior_path(dev, card, rows)
+        torch.cuda.empty_cache()
+
         phase = "train"
         k6_rows = check_k6(dev, gen)
         for r in k6_rows:
@@ -1992,10 +2249,12 @@ def main() -> int:
                "align3r_tpu/ops/attention.py:44"),
         "K9 bwd": ("flash_attention_bwd", src + "flash_attention.cu",
                    "align3r_tpu/ops/attention.py:44"),
+        "K9 fp32": ("flash_attention", src + "flash_attention.cu",
+                    "align3r_tpu/ops/attention.py:44"),
     }
     paths = {"K5": flow_launches, "K6": train_launches, "K7": heads_launches,
              "K7 fp32": heads_launches, "K8": heads_launches, "K8 fp32": heads_launches,
-             "K9": long_launches, "K9 bwd": long_launches}
+             "K9": long_launches, "K9 bwd": long_launches, "K9 fp32": prior_launches}
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         mine = [r for r in rows if r["kernel"] == k]
@@ -2019,7 +2278,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
                       "train_path": train_stats, "heads_path": heads_stats,
-                      "demo_path": demo_stats, "long_path": long_stats}), flush=True)
+                      "demo_path": demo_stats, "prior_path": prior_stats,
+                      "long_path": long_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

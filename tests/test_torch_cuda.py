@@ -1030,3 +1030,62 @@ def test_512x512_training_forward_takes_k9(dev):
              sa.small_attention.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (38, 18, 0)
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads if g is not None)
+
+
+# the DINOv2 attentions of the monocular priors (fp32, D = 64, 16 heads):
+# Depth Pro's 577 tokens, Depth Anything V2's 2443 at 518x924 and PromptDA's
+# 2994 at 574x1022; none a multiple of the fp32 key tile (32)
+@pytest.mark.parametrize("shape", [(3, 16, 577, 64), (1, 16, 2443, 64), (1, 8, 2994, 64)])
+def test_flash_attention_fp32_forward_at_the_prior_shapes(dev, shape):
+    """"auto" routes the priors' attentions to K9 (K6 takes Nq % 16 == 0
+    only), whose fp32 forward is held to its plain version (1e-4 x max)."""
+    from align3r_tpu_torch.ops.attention import attention, route
+    g = torch.Generator(device=dev).manual_seed(20)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
+    assert route(q, k, v, on_card=True) == "flash"
+    before = fa.flash_attention.launches
+    o = attention(q, k, v, "auto")
+    assert fa.flash_attention.launches == before + 1
+    ro, _ = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, ro, torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["depth_anything", "depth_pro"])
+def test_prior_model_on_the_card_takes_k9(dev, kind):
+    """A narrow prior (D = 64 heads) on the card: one K9 forward a ViT layer
+    pass, none of K9's backward, and the depth within 1e-4 of the same model
+    with plain attention (impl "xla")."""
+    from align3r_tpu_torch.models import depth_anything as tda
+    from align3r_tpu_torch.models import depth_pro as tdp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if kind == "depth_anything":
+        cfg = tda.DAConfig(hidden_size=128, num_layers=4, num_heads=2, out_indices=(1, 2, 3, 4),
+                           neck_hidden_sizes=(16, 24, 32, 32), fusion_hidden_size=16,
+                           head_hidden_size=8, image_size=70)
+        with torch.device(dev):
+            model = tda.init_prior_(tda.DepthAnything(cfg).eval(), seed=0)
+        x, passes = torch.randn(2, 70, 84, 3, generator=torch.Generator(device=dev).manual_seed(0),
+                                device=dev), 4
+    else:
+        vit = tdp.ViTCfg(128, 2, 2, 8, 32)
+        cfg = tdp.DepthProConfig(patch_model=vit, image_model=vit, fov_model=vit, patch_size=32,
+                                 scaled_images_feature_dims=(32, 32, 16),
+                                 intermediate_hook_ids=(1, 0),
+                                 intermediate_feature_dims=(16, 16), fusion_hidden_size=16,
+                                 image_size=128)
+        with torch.device(dev):
+            model = tda.init_prior_(tdp.DepthPro(cfg).eval(), seed=0)
+        x, passes = torch.randn(1, 128, 128, 3, generator=torch.Generator(device=dev).manual_seed(0),
+                                device=dev), 3 * 2
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    with torch.inference_mode():
+        out = model(x)
+        launched = fa.flash_attention.launches - before[0]
+        model.attn_impl = "xla"
+        ref = model(x)
+    torch.cuda.synchronize()
+    assert launched == passes and fa.flash_attention_bwd.launches == before[1]
+    depth, ref_depth = (out[0], ref[0]) if kind == "depth_pro" else (out, ref)
+    _close(depth, ref_depth, torch.float32)

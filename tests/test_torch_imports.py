@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of align3r_tpu_torch
-brings neither jax nor any module of the JAX package into the process, and
-the port's own copies of the JAX package's jax-free modules
+brings neither jax nor any module of the JAX package into the process, nor
+transformers, safetensors or huggingface_hub (the card has none of them;
+the port reads Hugging Face folders itself), nor PIL or cv2 (imported only
+inside the functions that need them), and the port's own copies of the JAX package's jax-free modules
 (models/config.py, inference/pairs.py) agree with them."""
 import dataclasses
 import os
@@ -19,6 +21,10 @@ from align3r_tpu_torch.models import config as tconfig
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+FORBIDDEN = ("jax", "align3r_tpu", "transformers", "safetensors", "huggingface_hub", "PIL",
+             "cv2")
+
+
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -26,8 +32,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'align3r_tpu' or m.startswith('align3r_tpu.')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -39,7 +44,10 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "geometry.warping", "alignment.flow", "alignment.pair_viewer", "models.raft",
         "models.raft1", "ops.edge_loss", "pipeline", "inference.images", "eval.viz",
         "eval.trajectory", "eval.html_viewer", "eval.glb", "alignment.clean", "compat",
-        "utils.png", "utils.sintel_io", "tools.demo")} <= names
+        "utils.png", "utils.sintel_io", "tools.demo", "utils.hf_weights", "utils.pfm",
+        "models.depth_anything", "models.depth_pro", "models.prompt_da", "eval.depth_metrics",
+        "eval.metadata", "tools.prior_depth", "tools.demo_refine", "tools.metric",
+        "tools.depth_test", "tools.pose_test")} <= names
 
 
 MODEL_STRINGS = [
