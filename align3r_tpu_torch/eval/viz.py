@@ -8,7 +8,8 @@ Export is native, without trimesh: a binary PLY writer for coloured point
 clouds / triangle meshes. `SceneViz.show()` saves to disk instead of
 opening a window. `segment_sky` needs neither OpenCV nor a native library:
 OpenCV's uint8 RGB->HSV saturation and value are computed here, and the
-connected components are scipy's.
+connected components (also behind `remove_small_regions`, SAM2's mask
+cleanup) are scipy's.
 """
 from __future__ import annotations
 
@@ -166,11 +167,26 @@ def hsv_sv(img: np.ndarray):
 
 
 def connected_components(mask: np.ndarray):
-    """8-connected components of a (H, W) mask: (labels int32, n, areas (n+1,))."""
+    """8-connected components of a (H, W) mask: (labels int32, 0 outside and
+    1..n in raster order of each component's first pixel, n, areas (n+1,)
+    int64 with areas[0] = 0), as align3r_tpu/native's C++ op returns them."""
     from scipy import ndimage
     labels, n = ndimage.label(np.asarray(mask, np.uint8), structure=np.ones((3, 3)))
     areas = np.bincount(labels.ravel(), minlength=n + 1)
+    areas[0] = 0
     return labels.astype(np.int32), int(n), areas.astype(np.int64)
+
+
+def remove_small_regions(mask: np.ndarray, area_thr: int, mode: str = "islands"):
+    """Drop foreground islands (mode "islands") or fill background holes
+    ("holes") of fewer than `area_thr` pixels, 8-connected (SAM2's mask
+    postprocessing; align3r_tpu/native/__init__.py:61-76). mask (H, W)."""
+    m = np.ascontiguousarray(np.asarray(mask).astype(np.uint8))
+    holes = mode != "islands"
+    labels, _, areas = connected_components(1 - m if holes else m)
+    out = m.astype(bool)
+    out[(areas < area_thr)[labels] & (labels > 0)] = holes
+    return out
 
 
 def segment_sky(image_01):

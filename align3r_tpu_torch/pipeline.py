@@ -10,8 +10,9 @@ SceneResult with poses, focals, intrinsics, depths, confidences, dynamic
 masks, sky masking and their savers. `reconstruct_scene_hierarchical` solves
 long videos as a coarse keyframe solve and clip solves anchored to it.
 
-SAM2 refinement of the motion masks is not ported yet: asking for it raises
-NotImplementedError (ROADMAP queue 1, the "SAM2" item).
+With `sam2_mask_refine`, the motion masks are refined by SAM2 video
+tracking (models/sam2_refine.py), or only cleaned up when no SAM2 model is
+given and no checkpoint is local, as in the JAX pipeline.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from align3r_tpu_torch.inference.engine import inference
 from align3r_tpu_torch.models.align3r import PreparedAlign3R
 from align3r_tpu_torch.models.raft import raft_forward
 from align3r_tpu_torch.models.raft1 import raft1_forward
+from align3r_tpu_torch.models.sam2_refine import refine_motion_mask_w_sam2
 from align3r_tpu_torch.utils.png import write_png
 
 
@@ -190,6 +192,7 @@ def reconstruct_scene(
     dynamic_masks=None,
     use_self_mask: bool = False,
     sam2_mask_refine: bool = False,
+    sam2_model=None,
     init: str = "mst",
     init_priors=None,
     niter: int = 300,
@@ -206,12 +209,12 @@ def reconstruct_scene(
     raft_params is a RAFT module (models/raft.py RAFT2 or models/raft1.py
     RAFT1) on that device: with it and flow_loss_weight > 0 the flow variant precomputes
     RAFT flows for every edge (and, with `use_self_mask`, the motion masks)
-    and adds the flow term, as in the JAX pipeline. SceneResult.timings holds
-    the host seconds of each phase (each ends in a device synchronise)."""
-    if sam2_mask_refine:
-        raise NotImplementedError(
-            "SAM2 refinement of the motion masks is not ported yet "
-            '(ROADMAP queue 1, the "SAM2" item)')
+    and adds the flow term, as in the JAX pipeline; with `sam2_mask_refine`
+    too, SAM2 refines those masks: `sam2_model` = (SAM2Video, cfg) from
+    sam2_video.load_hf_sam2_video, else the local facebook/sam2.1-hiera-large
+    on the model's device, else connected-component cleanup alone.
+    SceneResult.timings holds the host seconds of each phase (each ends in a
+    device synchronise)."""
     dev = model.device
     timings = {}
     n = imgs.shape[0]
@@ -244,6 +247,13 @@ def reconstruct_scene(
             dynamic_masks = motion_masks_from_pairs(output, flow_ij, flow_ji,
                                                     min_conf_thr=cfg.min_conf_thr)
             timings["masks_s"] = time.perf_counter() - t0
+            if sam2_mask_refine:
+                t0 = time.perf_counter()
+                dynamic_masks = refine_motion_mask_w_sam2(
+                    np.asarray(imgs) * 0.5 + 0.5, dynamic_masks,
+                    model=None if sam2_model is None else sam2_model[0], device=dev)
+                _sync(dev)
+                timings["sam2_s"] = time.perf_counter() - t0
         data = dataclasses.replace(data, flow_ij=flow_ij.to(dev), flow_ji=flow_ji.to(dev))
     if dynamic_masks is not None:
         data = dataclasses.replace(

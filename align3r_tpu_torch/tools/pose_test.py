@@ -27,6 +27,8 @@ from align3r_tpu_torch.eval.trajectory import (eval_metrics, load_traj, plot_tra
 from align3r_tpu_torch.inference.images import load_images, stack_views
 from align3r_tpu_torch.models.nn import device_or_raise
 from align3r_tpu_torch.models.raft1 import load_raft_auto
+from align3r_tpu_torch.models.sam2_refine import SAM2_MODEL, sam2_available
+from align3r_tpu_torch.models.sam2_video import load_hf_sam2_video
 from align3r_tpu_torch.pipeline import reconstruct_scene, reconstruct_scene_hierarchical
 from align3r_tpu_torch.tools import demo
 
@@ -85,6 +87,10 @@ def main(argv=None):
     raft_params = None
     if args.flow_loss_weight > 0 and os.path.exists(args.raft_weights):
         raft_params, _ = load_raft_auto(args.raft_weights, device=dev)
+    # SAM2 is loaded once for every sequence where a checkpoint is local;
+    # without one, --sam2_mask_refine cleans the motion masks up only
+    sam2 = (load_hf_sam2_video(SAM2_MODEL, device=dev)
+            if args.sam2_mask_refine and sam2_available() else None)
 
     err_log = os.path.join(args.output_dir, f"_error_log_{args.proc_id}.txt")
     ates, rpes_t, rpes_r = [], [], []
@@ -116,7 +122,7 @@ def main(argv=None):
             common = dict(
                 variant="flow", raft_params=raft_params,
                 use_self_mask=args.use_self_mask and not args.use_gt_mask,
-                sam2_mask_refine=args.sam2_mask_refine,
+                sam2_mask_refine=args.sam2_mask_refine, sam2_model=sam2,
                 niter=args.niter, lr=args.lr, schedule=args.pose_schedule,
                 batch_size=args.batch_size, scene_kw=scene_kw)
             seq_dir = os.path.join(args.output_dir, seq)

@@ -64,17 +64,37 @@ final result line:
                 twice per K1 site (one a site, and each decoder cross site
                 normalises its memory too: as many as K1 - K2 sites). A
                 second, warm run gives pairs/s and it/s.
-  6. flow     - the same entry point on the demo's flow path: SEA-RAFT
+  6. sam2     - SAM2.1 Hiera-L at the published geometry (SAM2_HF_CONFIG,
+                seeded random weights, fp32 with TF32 off), written as a local
+                HF folder with utils.hf_weights.save_pretrained and read back
+                with load_hf_sam2_video. refine_motion_mask_w_sam2 on the main
+                phase's first 12 frames (288x512) with a moving disc as every
+                frame's motion mask: 23 frame steps (11 tracked), counters
+                zeroed first; K6 fp32 must launch as often as dispatch_counts
+                derives from the config (33 Hiera-L attentions a step route to
+                it: the 32 windowed stage-3 blocks and the first stage-4 block),
+                K9's fp32 forward 4 times a tracked step (the memory
+                self-attention), its backward never; the refined masks bool
+                (12, 288, 512) and a superset of the input. Then
+                propagate_video on 4 frames with the kernels and with plain
+                attention (attn_impl "xla"): median relative difference of the
+                logits at most 1e-4. Prints seconds per frame step.
+  7. flow     - the same entry point on the demo's flow path: SEA-RAFT
                 spring-M at full width (seeded random weights) computes flows
                 in both directions of every edge, the self-supervised motion
-                masks come from PairViewer solves (numpy PnP on the host), and
-                the solve adds the flow term (the demo's scene_kw, weight
-                0.01). 12 of the 24 frames (70 pairs): the host PnP of the
-                masks costs seconds per pair, and 24 frames would take most of
-                the time limit. The counters are zeroed right before the call;
-                K5 must launch twice (the bf16 pack and the fp32 repack), K3
-                and K4 300 times; flows, masks (n, H, W) and outputs finite.
-  7. train    - the fine-tuning path: K6 against its plain version at the
+                masks come from PairViewer solves (numpy PnP on the host) and
+                are refined by the sam2 phase's model (sam2_mask_refine=True,
+                sam2_model=...: the reference's pose_test --sam2_mask_refine
+                route), and the solve adds the flow term (the demo's scene_kw,
+                weight 0.01). 12 of the 24 frames (70 pairs): the host PnP of
+                the masks costs seconds per pair, and 24 frames would take most
+                of the time limit. The counters are zeroed right before the
+                call; K5 must launch twice (the bf16 pack and the fp32
+                repack), K3 and K4 300 times, K6 and K9 as the sam2 phase's
+                formula gives for the self masks; flows, masks (n, H, W) and
+                outputs finite. Prints sam2_s and the dynamic share of the
+                masks before and after the refinement.
+  8. train    - the fine-tuning path: K6 against its plain version at the
                 training shapes (and its time beside torch's SDPA), K6's and
                 the differentiable K1/K2 sites' gradients against autograd of
                 their twins, then align3r_tpu_torch.training.train.train at
@@ -86,7 +106,7 @@ final result line:
                 loss must be finite, trainable parameters must move, frozen
                 ones must stay bit-identical, and checkpoint-final.pth must
                 reload strictly.
-  8. heads    - the serving engine with the pipeline DPT heads
+  9. heads    - the serving engine with the pipeline DPT heads
                 (head_conv_impl="pipeline": K7 at every refinenet level, K8 at
                 the tail) on the main phase's 24 frames (190 pairs, batch
                 32), counters zeroed first: 84 K7 and 12 K8 launches, pts3d
@@ -101,7 +121,7 @@ final result line:
                 conf within a median relative difference of 1e-4 (cuDNN with
                 TF32 off; the maximum printed too), engine seconds of both
                 warm, in turns (xla, pipeline, pipeline, xla).
-  9. long     - the fine-tuning entry point at the config's own 512x512 (1024
+ 10. long     - the fine-tuning entry point at the config's own 512x512 (1024
                 tokens, so every attention takes K9, never K6): K9's gradient
                 against autograd of its plain forward, then train() at
                 Align3RConfig() on 8 synthetic 512x512 pairs, batch 2,
@@ -110,7 +130,7 @@ final result line:
                 under remat) and 28 K9 backwards (the encoder is frozen), 0
                 K6; finite losses, frozen weights bit-identical, trainable
                 ones moved, checkpoint-final.pth reloads strictly.
- 10. demo     - the demo's serving entry, run after `heads`: 12 synthetic
+ 11. demo     - the demo's serving entry, run after `heads`: 12 synthetic
                 1024x576 PNG frames with DepthPro-style `.npz` priors (the
                 port's own writer) and a seeded VIT_L_512 checkpoint
                 (export_torch_checkpoint) under build/demo, loaded once
@@ -128,7 +148,7 @@ final result line:
                 trajectories and depths finite. Prints each stage's seconds
                 (weights, load, engine, init, solve, writers, hierarchical
                 total) and the card.
- 11. prior    - the monocular priors on the demo phase's frames, with seeded
+ 12. prior    - the monocular priors on the demo phase's frames, with seeded
                 random weights at full width: K9's fp32 forward (every
                 DINOv2 attention of the priors takes it) against its plain
                 version at the priors' five shapes (PRIOR_SHAPES), timed from
@@ -157,7 +177,10 @@ split by launch beside the XLA-path chain (cuDNN, TF32 off; from a CUDA graph
 and launched one by one), and untimed at the main path's last batch of 30
 pairs, and K9
 (forward and backward at the 512x512 training shapes, a ragged length,
-D = 128 and D = 256, in bf16 and in fp32) to their plain versions. Then the card line as nvidia-smi
+D = 128 and D = 256, in bf16 and in fp32) to their plain versions, and K6's
+and K9's fp32 forwards at SAM2.1 Hiera-L's shapes (SAM2_SHAPES: D = 72
+windows, and the memory self-attention at (1, 1, 4096, 256)), timed from a
+CUDA graph beside SDPA in fp32. Then the card line as nvidia-smi
 prints it, one JSON line with the kernels (time, plain time, bound, launches
 on their path, library-call time), and last {"ok": true, "device": {...}}.
 The process fails if jax or the JAX package (align3r_tpu) was imported.
@@ -190,6 +213,57 @@ DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
 DEMO_SITE_B = {"encoder": (12, 6, 3, 2), "decoder": (8, 6, 4, 2)}
 DEMO_GRAPHS = ((12, "swinstride-5-noncyclic"), (12, "complete"), (6, "complete"),
                (3, "complete"), (2, "complete"))
+# SAM2.1 Hiera-L's config.json fields (facebook/sam2.1-hiera-large, as
+# transformers' Sam2VideoConfig writes them): the sam2 phase's geometry
+SAM2_HF_CONFIG = {
+    "model_type": "sam2_video", "image_size": 1024, "num_maskmem": 7,
+    "max_object_pointers_in_encoder": 16, "sigmoid_scale_for_mem_enc": 20.0,
+    "sigmoid_bias_for_mem_enc": -10.0, "enable_occlusion_spatial_embedding": True,
+    "enable_temporal_pos_encoding_for_object_pointers": True,
+    "multimask_output_for_tracking": True, "multimask_output_in_sam": True,
+    "multimask_min_pt_num": 0, "multimask_max_pt_num": 1,
+    "memory_attention_hidden_size": 256, "memory_attention_num_layers": 4,
+    "memory_attention_num_attention_heads": 1, "memory_attention_downsample_rate": 1,
+    "memory_attention_feed_forward_hidden_size": 2048,
+    "memory_attention_feed_forward_hidden_act": "relu", "memory_attention_rope_theta": 10000,
+    "memory_attention_rope_feat_sizes": [64, 64], "memory_encoder_hidden_size": 256,
+    "memory_encoder_output_channels": 64, "mask_downsampler_embed_dim": 256,
+    "mask_downsampler_kernel_size": 3, "mask_downsampler_stride": 2,
+    "mask_downsampler_padding": 1, "mask_downsampler_total_stride": 16,
+    "memory_fuser_num_layers": 2, "memory_fuser_embed_dim": 256,
+    "memory_fuser_intermediate_dim": 1024, "memory_fuser_kernel_size": 7,
+    "memory_fuser_padding": 3,
+    "vision_config": {
+        "model_type": "sam2_vision_model",
+        "backbone_config": {
+            "model_type": "sam2_hiera_det_model", "hidden_size": 144, "num_attention_heads": 2,
+            "num_attention_heads_per_stage": [2, 4, 8, 16], "blocks_per_stage": [2, 6, 36, 4],
+            "embed_dim_per_stage": [144, 288, 576, 1152], "window_size_per_stage": [8, 4, 16, 8],
+            "global_attention_blocks": [23, 33, 43],
+            "window_positional_embedding_background_size": [7, 7], "query_stride": [2, 2],
+            "num_query_pool_stages": 3, "patch_kernel_size": 7, "patch_stride": 4,
+            "patch_padding": 3, "mlp_ratio": 4.0, "layer_norm_eps": 1e-6,
+            "image_size": [1024, 1024]},
+        "backbone_channel_list": [1152, 576, 288, 144],
+        "backbone_feature_sizes": [[256, 256], [128, 128], [64, 64]],
+        "fpn_hidden_size": 256, "fpn_top_down_levels": [2, 3], "num_feature_levels": 3},
+    "prompt_encoder_config": {"hidden_size": 256, "image_size": 1024, "patch_size": 16,
+                              "mask_input_channels": 16, "num_point_embeddings": 4},
+    "mask_decoder_config": {
+        "hidden_size": 256, "num_hidden_layers": 2, "num_attention_heads": 8, "mlp_dim": 2048,
+        "attention_downsample_rate": 2, "num_multimask_outputs": 3, "iou_head_depth": 3,
+        "iou_head_hidden_dim": 256, "dynamic_multimask_via_stability": True,
+        "dynamic_multimask_stability_delta": 0.05, "dynamic_multimask_stability_thresh": 0.98},
+}
+SAM2_FRAMES = 12         # the main phase's first 12 frames, 288x512
+SAM2_AGREE_FRAMES = 4    # propagate_video with K6/K9 and with plain attention
+SAM2_REL_TOL = 1e-4      # median relative difference of the logits
+# the dispatched attentions SAM2.1 Hiera-L gives the kernels, (B, H, Nq, D, Nk)
+# fp32: K6 at the stage-3 windows and the first stage-4 block, K9 at the
+# memory self-attention
+SAM2_SHAPES = (("K6 fp32", "Hiera-L stage-3 windows", (16, 8, 256, 72, 256)),
+               ("K6 fp32", "Hiera-L first stage-4 block (pooled queries)", (16, 16, 64, 72, 256)),
+               ("K9 fp32", "SAM2.1 memory self-attention", (1, 1, 4096, 256, 4096)))
 # published H100 SXM peaks (dense): bf16 tensor cores, fp32 without them, HBM
 PEAK_BF16, PEAK_FP32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 # dense TF32 tensor cores; an fp32-accurate product there is 3 TF32 products
@@ -1194,14 +1268,20 @@ def main_path(dev):
 
 # ----------------------------------------------------------------- phase 6
 
-def flow_path(dev, pm, imgs, priors):
-    """The demo's flow path (see the module docstring) on FLOW_FRAMES frames."""
+def flow_path(dev, pm, imgs, priors, sam2):
+    """The demo's flow path (see the module docstring) on FLOW_FRAMES frames,
+    with the motion masks refined by `sam2` (model, cfg): the reference's
+    pose_test --sam2_mask_refine route."""
     import numpy as np
     import torch
+    from align3r_tpu_torch import pipeline as tp
     from align3r_tpu_torch.alignment.flow import flow_term
+    from align3r_tpu_torch.models import sam2_video as tsv
     from align3r_tpu_torch.models.raft import RAFT2, SPRING_M, init_raft_
     from align3r_tpu_torch.ops import edge_loss as el
+    from align3r_tpu_torch.ops import flash_attention as fa
     from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
     from align3r_tpu_torch.pipeline import compute_raft_flows, reconstruct_scene
 
     n = FLOW_FRAMES
@@ -1215,16 +1295,25 @@ def flow_path(dev, pm, imgs, priors):
                     translation_weight=1.0, flow_loss_weight=0.01,
                     flow_loss_start_epoch=0.1, flow_loss_thre=25, min_conf_thr=1.1)
     kw = dict(scene_graph="swinstride-5-noncyclic", batch_size=BATCH, variant="flow",
-              raft_params=raft, use_self_mask=True, niter=300, schedule="linear",
-              lr=0.01, scene_kw=scene_kw)
+              raft_params=raft, use_self_mask=True, sam2_mask_refine=True, sam2_model=sam2,
+              niter=300, schedule="linear", lr=0.01, scene_kw=scene_kw)
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
-                el.permute_packed, fs.gemm)
+                el.permute_packed, fs.gemm, sa.small_attention, fa.flash_attention)
+    # the self masks SAM2 refines, as the pipeline computes them
+    self_masks = []
+    own = tp.motion_masks_from_pairs
+    tp.motion_masks_from_pairs = lambda *a, **k: self_masks.append(own(*a, **k)) or self_masks[-1]
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
-    res = reconstruct_scene(imgs, priors, pm, **kw)
+    try:
+        res = reconstruct_scene(imgs, priors, pm, **kw)
+    finally:
+        tp.motion_masks_from_pairs = own
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    steps, tracked = tsv.frame_steps(self_masks[0])
+    trunk, mem = tsv.dispatch_counts(sam2[1])
     t = res.timings
     E = res.cfg.n_edges
     print(f"flow: {n} frames, {E} pairs, timings {json.dumps(t)} launches "
@@ -1234,7 +1323,9 @@ def flow_path(dev, pm, imgs, priors):
         "k5_2_per_solve": launches["permute_packed"] == 2,
         "k3_k4_300": launches["edge_loss_fwd"] == 300 and launches["edge_loss_bwd"] == 300,
         "k1_k2_launched": launches["attention_site"] > 0 and launches["mlp_site"] > 0,
-        "timings": {"raft_s", "masks_s", "solve_s"} <= set(t),
+        "timings": {"raft_s", "masks_s", "sam2_s", "solve_s"} <= set(t),
+        "sam2_launches": (launches["small_attention"] == steps * trunk["small"]
+                          and launches["flash_attention"] == tracked * mem["flash"]),
         "flows": tuple(res.data.flow_ij.shape) == (E, H, W, 2)
         and bool(torch.isfinite(res.data.flow_ij).all() and torch.isfinite(res.data.flow_ji).all()),
         "masks": masks is not None and masks.shape == (n, H, W) and masks.dtype == bool,
@@ -1260,6 +1351,9 @@ def flow_path(dev, pm, imgs, priors):
     stats = {"frames": n, "pairs": E, "raft_s": t["raft_s"],
              "raft_ms_per_directed_pair": t["raft_s"] * 1e3 / (2 * E),
              "masks_s": t["masks_s"], "masks_s_per_symmetric_pair": t["masks_s"] / (E / 2),
+             "sam2_s": t["sam2_s"], "sam2_frame_steps": steps, "sam2_tracked_steps": tracked,
+             "sam2_s_per_frame_step": t["sam2_s"] / max(steps, 1),
+             "dynamic_share_self_masks": float(self_masks[0].mean()),
              "inference_s": t["inference_s"], "init_s": t["init_s"], "solve_s": t["solve_s"],
              "alignment_it_per_s": 300 / t["solve_s"],
              "dynamic_share": float(masks.mean()),
@@ -1849,6 +1943,161 @@ def demo_path(dev, card):
 # heads): Depth Pro's patch encoder (35 crops a frame) at --batch_size 1 and
 # 4, its image and FOV encoders, Depth Anything V2 at 518x924 (batch 4) and
 # PromptDA at 574x1022 (batch 2)
+def check_sam2_attention(dev, gen):
+    """K6's and K9's fp32 forwards at SAM2_SHAPES against their plain
+    versions (1e-4 x max, the fp32 rows' tolerance), timed from a CUDA graph
+    beside scaled_dot_product_attention in fp32 and the plain version; bound
+    3 TF32 products a product at PEAK_TF32, or the bytes (q, k, v read, o
+    written; K9's log-sum-exp too)."""
+    import torch
+    import torch.nn.functional as F
+    from align3r_tpu_torch.ops import flash_attention as fa
+    from align3r_tpu_torch.ops import small_attention as sa
+    rows = []
+    for kernel, name, (B_, H_, Nq, D_, Nk) in SAM2_SHAPES:
+        q = torch.randn(B_, H_, Nq, D_, generator=gen, device=dev)
+        k, v = (torch.randn(B_, H_, Nk, D_, generator=gen, device=dev) for _ in range(2))
+        if kernel == "K6 fp32":
+            kern = lambda: sa.small_attention(q, k, v)
+            plain = lambda: sa.small_attention_plain(q, k, v)
+            out, ref, lse_bytes = kern(), plain(), 0
+        else:
+            kern = lambda: fa.flash_attention_fwd(q, k, v)
+            plain = lambda: fa.flash_attention_plain(q, k, v)
+            out, ref, lse_bytes = kern()[0], plain()[0], B_ * H_ * Nq * 4
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        heads = B_ * H_
+        b_ms, b_by = bound(heads * (2 * Nq + 2 * Nk) * D_ * 4 + lse_bytes,
+                           3 * 4 * heads * Nq * Nk * D_, PEAK_TF32)
+        rows.append(ratios(dict(
+            kernel=kernel, shape=f"{name} {(B_, H_, Nq, Nk, D_)} fp32", max_abs_err=e[0],
+            max_rel_err=e[1], tol=1e-4 * e[2],
+            ok=e[0] <= 1e-4 * e[2] and torch.isfinite(out).all().item(),
+            ms=graph_time(kern, 20), ms_eager=cuda_time(kern, 20),
+            plain_ms=cuda_time(plain, 3),
+            library_ms=graph_time(lambda: F.scaled_dot_product_attention(q, k, v), 20),
+            bound_ms=b_ms, bound_by=b_by)))
+        del q, k, v, out, ref
+    return rows
+
+
+def moving_discs(n, radius=40, step=16):
+    """(n, H, W) bool: a disc moving right by `step` pixels a frame."""
+    import numpy as np
+    yy, xx = np.mgrid[0:H, 0:W]
+    return np.stack([(yy - H // 2) ** 2 + (xx - 120 - step * t) ** 2 <= radius ** 2
+                     for t in range(n)])
+
+
+def sam2_path(dev, card, imgs):
+    """SAM2.1 Hiera-L from seeded weights, written and read back as a local
+    HF folder, refining moving-disc masks on the main phase's first frames
+    (see the module docstring). Returns the model (for the flow phase), the
+    K6 / K9 launches and the stats."""
+    import numpy as np
+    import shutil
+    import torch
+    from align3r_tpu_torch.models import sam2 as ts
+    from align3r_tpu_torch.models import sam2_video as tsv
+    from align3r_tpu_torch.models.raft import exact_fp32
+    from align3r_tpu_torch.models.sam2_refine import refine_motion_mask_w_sam2
+    from align3r_tpu_torch.ops import flash_attention as fa
+    from align3r_tpu_torch.ops import small_attention as sa
+    from align3r_tpu_torch.utils import hf_weights
+
+    phase_t0 = time.perf_counter()
+    exact_fp32()
+    cfg = tsv.config_from_hf_sam2_video(SAM2_HF_CONFIG)
+    hi = cfg.image.hiera
+    published = (hi.hidden_size == 144 and hi.num_heads_per_stage == (2, 4, 8, 16)
+                 and hi.blocks_per_stage == (2, 6, 36, 4)
+                 and hi.embed_dim_per_stage == (144, 288, 576, 1152)
+                 and hi.window_size_per_stage == (8, 4, 16, 8)
+                 and hi.global_attention_blocks == (23, 33, 43)
+                 and hi.window_pos_bg_size == (7, 7) and cfg.image.image_size == 1024
+                 and cfg.image.fpn_hidden_size == 256 and cfg.ma_num_layers == 4
+                 and cfg.ma_num_heads == 1 and cfg.ma_hidden_size == 256
+                 and cfg.ma_ff_hidden_size == 2048 and cfg.ma_rope_feat_sizes == (64, 64)
+                 and cfg.mem_dim == 64 and cfg.num_maskmem == 7
+                 and cfg.max_object_pointers == 16)
+    folder = os.path.join(HERE, "build", "sam2", "sam2.1-hiera-large-seed0")
+    shutil.rmtree(folder, ignore_errors=True)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        seeded = ts.init_sam2_(tsv.SAM2Video(cfg).eval(), seed=0)
+    n_params = sum(p.numel() for p in seeded.parameters())
+    hf_weights.save_pretrained(folder, SAM2_HF_CONFIG, seeded.state_dict())
+    del seeded
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, cfg = tsv.load_hf_sam2_video(folder, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    frames01 = np.asarray(imgs[:SAM2_FRAMES]) * 0.5 + 0.5
+    masks = moving_discs(SAM2_FRAMES)
+    steps, tracked = tsv.frame_steps(masks)
+    trunk, mem = tsv.dispatch_counts(cfg)
+    expect = {"small_attention": steps * trunk["small"],
+              "flash_attention": tracked * mem["flash"], "flash_attention_bwd": 0}
+    counters = (sa.small_attention, fa.flash_attention, fa.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    refined = refine_motion_mask_w_sam2(frames01, masks, model=model, device=dev)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"sam2: {SAM2_FRAMES} frames, {steps} frame steps ({tracked} tracked); per step "
+          f"{dict(trunk)} Hiera-L attentions, per tracked step {dict(mem)} memory "
+          f"self-attentions; launches {json.dumps(launches)}, expected {json.dumps(expect)}",
+          flush=True)
+
+    # K6 / K9 against plain attention on the same frames
+    fr = tsv.preprocess_sam2_frames(frames01[:SAM2_AGREE_FRAMES], cfg.image.image_size,
+                                    device=dev)
+    S = cfg.image.image_size
+    seed = (torch.nn.functional.interpolate(
+        torch.as_tensor(masks[0], dtype=torch.float32, device=dev)[None, None], size=(S, S),
+        mode="bilinear", align_corners=False)[0, 0, :, :, None] > 0.5).float()
+    t0 = time.perf_counter()
+    got = tsv.propagate_video(model, fr, seed)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    model.attn_impl = "xla"
+    t0 = time.perf_counter()
+    ref = tsv.propagate_video(model, fr, seed)
+    torch.cuda.synchronize()
+    xla_s = time.perf_counter() - t0
+    model.attn_impl = "auto"
+    rel = _rel_diff(got.cpu().numpy(), ref.cpu().numpy())
+    checks = {
+        "published_geometry": published,
+        "launches": launches == expect and steps == 23 and tracked == 11,
+        "refined": refined.shape == (SAM2_FRAMES, H, W) and refined.dtype == bool,
+        "contains_input": bool((refined | masks).sum() == refined.sum()),
+        "logits_finite": bool(torch.isfinite(got).all() and torch.isfinite(ref).all()),
+        "matches_plain_attention": rel <= SAM2_REL_TOL,
+    }
+    stats = {"card": card, "params": n_params, "write_s": write_s, "load_s": load_s,
+             "frame_steps": steps, "tracked_steps": tracked, "launches": launches,
+             "k6_per_step": trunk["small"], "k9_per_tracked_step": mem["flash"],
+             "refine_s": refine_s, "s_per_frame_step": refine_s / steps,
+             "dynamic_share_in": float(masks.mean()), "dynamic_share_out": float(refined.mean()),
+             "propagate_s": auto_s, "propagate_s_plain_attention": xla_s,
+             "logits_median_rel_diff_vs_plain": rel,
+             "logits_max_abs_diff_vs_plain": float((got - ref).abs().max()),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "phase_s": time.perf_counter() - phase_t0}
+    print(f"sam2: checks {json.dumps(checks)}", flush=True)
+    print(f"sam2: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"sam2 checks failed: {checks}")
+    return (model, cfg), launches, stats
+
+
 PRIOR_SHAPES = (("Depth Pro patch encoder, batch 1", (35, 16, 577, 64)),
                 ("Depth Pro patch encoder, batch 4", (140, 16, 577, 64)),
                 ("Depth Pro image / FOV encoder, batch 1", (1, 16, 577, 64)),
@@ -2152,7 +2401,8 @@ def main() -> int:
                     dev, gen, n, make_pairs(n, g, symmetrize=True))]
                 + check_k5(dev, gen)
                 + [r for n, g in DEMO_GRAPHS for r in check_k5(dev, gen, n, g, timed=False)]
-                + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen))
+                + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen)
+                + check_sam2_attention(dev, gen))
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
         bad = [r for r in rows if not r["ok"]]
@@ -2168,8 +2418,13 @@ def main() -> int:
         launches, rates, pm, pm32, imgs, priors = main_path(dev)
         torch.cuda.empty_cache()
 
+        phase = "sam2"
+        sam2, sam2_launches, sam2_stats = sam2_path(dev, card, imgs)
+        torch.cuda.empty_cache()
+
         phase = "flow"
-        flow_launches, flow_stats = flow_path(dev, pm, imgs, priors)
+        flow_launches, flow_stats = flow_path(dev, pm, imgs, priors, sam2)
+        del sam2
         torch.cuda.empty_cache()
 
         phase = "heads"
@@ -2251,16 +2506,26 @@ def main() -> int:
                    "align3r_tpu/ops/attention.py:44"),
         "K9 fp32": ("flash_attention", src + "flash_attention.cu",
                     "align3r_tpu/ops/attention.py:44"),
+        "K6 fp32": ("small_attention", src + "small_attention.cu",
+                    "align3r_tpu/ops/small_attention.py:47"),
     }
-    paths = {"K5": flow_launches, "K6": train_launches, "K7": heads_launches,
-             "K7 fp32": heads_launches, "K8": heads_launches, "K8 fp32": heads_launches,
-             "K9": long_launches, "K9 bwd": long_launches, "K9 fp32": prior_launches}
+    # the path(s) each kernel's launches were counted on
+    paths = {"K5": {"flow": flow_launches}, "K6": {"train": train_launches},
+             "K7": {"heads": heads_launches}, "K7 fp32": {"heads": heads_launches},
+             "K8": {"heads": heads_launches}, "K8 fp32": {"heads": heads_launches},
+             "K9": {"long": long_launches}, "K9 bwd": {"long": long_launches},
+             "K9 fp32": {"prior": prior_launches, "sam2": sam2_launches},
+             "K6 fp32": {"sam2": sam2_launches}}
     kernels = []
     for k, (fn, source, replaces) in meta.items():
-        mine = [r for r in rows if r["kernel"] == k]
-        path = paths.get(k, launches)
+        # the headline row is the first of its path's rows (K9 fp32: the
+        # priors', which came first; SAM2's shape follows among the checks)
+        mine = sorted((r for r in rows if r["kernel"] == k),
+                      key=lambda r: k == "K9 fp32" and "SAM2" in r["shape"])
+        by_path = {name: counts[fn] for name, counts in paths.get(k, {"main": launches}).items()}
         kernels.append({"name": f"{k} {fn}", "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": path[fn],
+                        "replaces": replaces, "launches": sum(by_path.values()),
+                        "launches_on": by_path,
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
                         "bound_ms": mine[0]["bound_ms"], "bound_by": mine[0]["bound_by"],
@@ -2277,6 +2542,7 @@ def main() -> int:
                                    for r in mine]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
+                      "sam2_path": sam2_stats,
                       "train_path": train_stats, "heads_path": heads_stats,
                       "demo_path": demo_stats, "prior_path": prior_stats,
                       "long_path": long_stats}), flush=True)

@@ -1089,3 +1089,73 @@ def test_prior_model_on_the_card_takes_k9(dev, kind):
     assert launched == passes and fa.flash_attention_bwd.launches == before[1]
     depth, ref_depth = (out[0], ref[0]) if kind == "depth_pro" else (out, ref)
     _close(depth, ref_depth, torch.float32)
+
+
+# SAM2.1 Hiera-L's shapes: the stage-3 windows (16 windows x 8 heads x 256
+# tokens, D = 72, padded to the DP = 128 instance) and the first stage-4 block
+# (query-pooled to 64 of its 256 tokens, 16 heads)
+@pytest.mark.parametrize("shape", [(16, 8, 256, 72, 256), (16, 16, 64, 72, 256),
+                                   (2, 3, 100, 72, 33)])
+def test_small_attention_f32_sam2_head_dim(dev, shape):
+    """K6 fp32 at D = 72: the padded lanes of q, k and v must stay zero in
+    both halves of the split, the scale is 72^-1/2, and only 72 output
+    columns are written (a neighbour's row would show in the next head)."""
+    B, H, Nq, D, Nk = shape
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(B, H, n, D, generator=g, device=dev) for n in (Nq, Nk, Nk))
+    before = sa.small_attention.launches
+    out = sa.small_attention(q, k, v)
+    assert sa.small_attention.launches == before + 1
+    ref = sa.small_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(out, ref, torch.float32)
+
+
+def test_flash_attention_f32_sam2_memory_shape(dev):
+    """K9's fp32 forward at SAM2.1's memory self-attention: one head of 4096
+    tokens at D = 256 (64 query blocks on 132 SMs)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn(1, 1, 4096, 256, generator=g, device=dev) for _ in range(3))
+    (o, lse), (ro, rlse) = fa.flash_attention_fwd(q, k, v), fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _close(o, ro, torch.float32)
+    assert (lse - rlse).abs().max().item() <= 1e-5 * rlse.abs().max().item()
+
+
+def test_sam2_on_the_card_takes_k6_and_k9(dev):
+    """A narrow seeded SAM2 video model whose first two Hiera blocks attend in
+    16x16 windows (D = 16) and whose memory attention is one head at
+    D = 256: propagate_video on 3 frames launches K6 and K9 as
+    dispatch_counts says (2 K6 a frame step, one K9 a memory layer of each
+    tracked step), no K9 backward, and its logits agree with plain attention
+    (impl "xla") within 1e-4 of the largest."""
+    from align3r_tpu_torch.models import sam2 as ts
+    from align3r_tpu_torch.models import sam2_video as tsv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hiera = ts.HieraConfig(hidden_size=16, num_heads_per_stage=(1, 2, 4, 8),
+                           blocks_per_stage=(1, 1, 1, 1), embed_dim_per_stage=(16, 32, 64, 128),
+                           window_size_per_stage=(16, 4, 4, 2), global_attention_blocks=(),
+                           window_pos_bg_size=(4, 4), mlp_ratio=2.0)
+    image = ts.SAM2Config(hiera=hiera, backbone_channel_list=(128, 64, 32, 16), image_size=256,
+                          decoder_mlp_dim=256, iou_head_hidden_dim=64)
+    cfg = tsv.SAM2VideoConfig(image=image, num_maskmem=3, max_object_pointers=4,
+                              ma_num_layers=2, ma_ff_hidden_size=256, ma_rope_feat_sizes=(16, 16),
+                              fuser_intermediate_dim=256)
+    trunk, mem = tsv.dispatch_counts(cfg)
+    assert trunk["small"] == 2 and mem["flash"] == 2
+    with torch.device(dev):
+        model = ts.init_sam2_(tsv.SAM2Video(cfg).eval(), seed=0)
+    g = torch.Generator(device=dev).manual_seed(23)
+    frames = torch.randn(3, 256, 256, 3, generator=g, device=dev)
+    seed = torch.zeros(256, 256, 1, device=dev)
+    seed[80:170, 60:150] = 1.0
+    counters = (sa.small_attention, fa.flash_attention, fa.flash_attention_bwd)
+    before = [c.launches for c in counters]
+    out = tsv.propagate_video(model, frames, seed)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    model.attn_impl = "xla"
+    ref = tsv.propagate_video(model, frames, seed)
+    torch.cuda.synchronize()
+    assert launched == [3 * trunk["small"], 2 * mem["flash"], 0]
+    _close(out, ref, torch.float32)

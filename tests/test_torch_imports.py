@@ -47,7 +47,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "utils.png", "utils.sintel_io", "tools.demo", "utils.hf_weights", "utils.pfm",
         "models.depth_anything", "models.depth_pro", "models.prompt_da", "eval.depth_metrics",
         "eval.metadata", "tools.prior_depth", "tools.demo_refine", "tools.metric",
-        "tools.depth_test", "tools.pose_test")} <= names
+        "tools.depth_test", "tools.pose_test", "models.sam2", "models.sam2_video",
+        "models.sam2_refine")} <= names
 
 
 MODEL_STRINGS = [

@@ -200,14 +200,6 @@ def test_flow_savers(tmp_path):
     assert not res.save_dynamic_masks(tmp_path / "none").any()
 
 
-def test_sam2_refinement_raises():
-    """SAM2 is not ported: the error points to ROADMAP's SAM2 item by name."""
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, the "SAM2" item'):
-        tpipe.reconstruct_scene(np.zeros((2, 32, 32, 3), np.float32),
-                                np.zeros((2, 32, 32, 3), np.float32), None,
-                                sam2_mask_refine=True)
-
-
 def test_prepare_defaults_to_the_card():
     """prepare() puts the serving weights on the card: without CUDA it
     raises and names device="cpu"; device="cpu" builds them on the CPU."""

@@ -308,7 +308,8 @@ class _StandInScene:
 
 def _stand_in(calls):
     def solve(imgs, priors, *model, **kw):
-        calls.append({k: v for k, v in kw.items() if k not in ("raft_params", "raft_kind")})
+        calls.append({k: v for k, v in kw.items()
+                      if k not in ("raft_params", "raft_kind", "sam2_model")})
         return _StandInScene(imgs, priors, kw)
     return solve
 
@@ -442,6 +443,31 @@ def test_pose_test_tool_matches_jax(monkeypatch, tmp_path):
     assert got.keys() == ref.keys()
     for k in ref:
         assert float(got[k]) == pytest.approx(float(ref[k]), rel=1e-6, abs=1e-9), k
+
+
+def test_pose_test_tool_sam2_flag_matches_jax(monkeypatch, tmp_path):
+    """--sam2_mask_refine reaches reconstruct_scene as in the JAX tool; with
+    no local SAM2 checkpoint the port loads no model (the pipeline then
+    cleans the masks up, as JAX's does)."""
+    import tool.pose_test as JPT
+    from test_pose_tool import _make_scannet_fixture
+    from align3r_tpu_torch.tools import pose_test as TPT
+    _make_scannet_fixture(str(tmp_path), 6)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
+    jcalls, tcalls = [], []
+    _jax_tool_env(monkeypatch, jcalls)
+    port = []
+    monkeypatch.setattr(TPT, "reconstruct_scene",
+                        lambda *a, **kw: port.append(kw.get("sam2_model", "absent"))
+                        or _stand_in(tcalls)(*a, **kw))
+    monkeypatch.setattr(tdemo, "load_model", lambda *a, **k: None)
+    common = ["--eval_dataset", "scannet", "--image_size", "64", "--niter", "5",
+              "--batch_size", "4", "--sam2_mask_refine"]
+    _run_jax_tool(JPT.main, ["pose_test", "--output_dir", "jout", *common])
+    TPT.main(["--output_dir", "tout", *common, "--device", "cpu"])
+    assert tcalls == jcalls and tcalls[0]["sam2_mask_refine"] is True
+    assert port == [None]
 
 
 def test_pose_test_tool_end_to_end(monkeypatch, tmp_path):
