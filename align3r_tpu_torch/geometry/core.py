@@ -1,9 +1,12 @@
 """Camera geometry core (port of align3r_tpu/geometry/core.py).
 
 Plain functions on tensors; shapes and conventions are the JAX package's.
+The data pipeline's host-side helpers (`depthmap_to_camera_coords`, the
+intrinsics conversions) work on numpy arrays, as in the JAX package.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -103,6 +106,41 @@ def pixel_to_pointcloud(depth_map, focal_length_px):
     mn = pc.amin(dim=(0, 1))
     mx = pc.amax(dim=(0, 1))
     return (pc - mn) / (mx - mn)
+
+
+def depthmap_to_camera_coords(depthmap, camera_intrinsics, max_depth: float = 400.0):
+    """Unproject a depth map (H, W) with a full 3x3 K (no skew), numpy on the
+    host (geometry/core.py:109-131). Returns (pts (H, W, 3) float32, valid
+    (H, W, 2)): valid[..., 0] = 0 < depth < max_depth, valid[..., 1] =
+    depth > 0; where no pixel is valid, the nearest nonzero depth is."""
+    depthmap = np.asarray(depthmap)
+    K = np.float32(camera_intrinsics)
+    H, W = depthmap.shape
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    x = (u - K[0, 2]) * depthmap / K[0, 0]
+    y = (v - K[1, 2]) * depthmap / K[1, 1]
+    pts = np.stack([x, y, depthmap], axis=-1).astype(np.float32)
+    valid = (depthmap > 0.0) & (depthmap < max_depth)
+    if valid.sum() == 0:
+        d = depthmap.copy()
+        d[d == 0] = 1e4
+        valid[d == d.min()] = True
+    return pts, np.stack([valid, depthmap > 0.0], axis=-1)
+
+
+def colmap_to_opencv_intrinsics(K):
+    """Pixel centres at integers (OpenCV) from centres at +0.5 (COLMAP)."""
+    K = np.array(K, copy=True)
+    K[0, 2] -= 0.5
+    K[1, 2] -= 0.5
+    return K
+
+
+def opencv_to_colmap_intrinsics(K):
+    K = np.array(K, copy=True)
+    K[0, 2] += 0.5
+    K[1, 2] += 0.5
+    return K
 
 
 def normalize_pointcloud(pts1, pts2=None, norm_mode: str = "avg_dis",

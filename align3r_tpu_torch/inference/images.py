@@ -8,9 +8,11 @@ arrays (n, H, W, C), as the JAX loader gives them.
 
 No imaging library is needed at import time or for PNG frames:
 - images are uint8 arrays; PNG is read by `utils.png` (8-bit gray, gray +
-  alpha, RGB and RGBA); JPEG, HEIC and other PNGs go through PIL with
-  `exif_transpose` where PIL is importable, else an ImportError names the
-  file; video goes through OpenCV where it is importable, likewise;
+  alpha, RGB and RGBA), baseline JPEG by `utils.jpeg` (the bits cv2 and
+  PIL give); HEIC, other PNGs and other JPEGs (progressive, arithmetic,
+  12-bit, CMYK) go through PIL with `exif_transpose` where PIL is
+  importable, else an ImportError names the file (and a JPEG's SOF marker);
+  video goes through OpenCV where it is importable, likewise;
 - the resamplers are the port's own, always: PIL's LANCZOS and NEAREST on
   uint8 (bit for bit) for frames and masks (and its BICUBIC for the scene
   viewer's thumbnails), OpenCV's INTER_CUBIC on float32 for priors. So the
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from align3r_tpu_torch.geometry.core import pixel_to_pointcloud
+from align3r_tpu_torch.utils.jpeg import UnsupportedJPEG, read_jpeg
 from align3r_tpu_torch.utils.png import UnsupportedPNG, read_png
 
 VIDEO_EXTS = (".mp4", ".avi", ".mov")
@@ -41,24 +44,34 @@ PRECISION_BITS = 22          # PIL Resample.c: 32 - 8 - 2
 
 # ------------------------------------------------------------- decoding
 
-def _pil_image(path: str):
+def _pil_image(path: str, why: str = ""):
     try:
         import PIL.Image
         from PIL.ImageOps import exif_transpose
     except ImportError as e:
         raise ImportError(f"reading {path} needs Pillow, which is not installed "
-                          "(PNG frames are read without it)") from e
+                          f"{why}(PNG and baseline JPEG frames are read without it)") from e
     if path.lower().endswith((".heic", ".heif")):
         from pillow_heif import register_heif_opener
         register_heif_opener()
     return PIL.Image, exif_transpose
 
 
-def _png(path: str):
+def _decoded(path: str, orient: bool = True):
+    """The port's own decode of a PNG or JPEG file, or None where it does not
+    read the file (and PIL is to); None for other extensions."""
+    low = path.lower()
     try:
-        return read_png(path)
+        if low.endswith(".png"):
+            return read_png(path)
+        if low.endswith((".jpg", ".jpeg")):
+            return read_jpeg(path, orient)
     except UnsupportedPNG:
         return None
+    except UnsupportedJPEG as e:
+        _pil_image(path, f"({e}) ")     # without PIL: raise naming the SOF marker
+        return None
+    return None
 
 
 def rgb_to_l(img: np.ndarray) -> np.ndarray:
@@ -70,7 +83,7 @@ def rgb_to_l(img: np.ndarray) -> np.ndarray:
 
 def read_rgb(path: str) -> np.ndarray:
     """uint8 (H, W, 3), as exif_transpose(PIL.Image.open(path)).convert("RGB")."""
-    img = _png(path) if path.lower().endswith(".png") else None
+    img = _decoded(path)
     if img is None:
         Image, exif_transpose = _pil_image(path)
         return np.asarray(exif_transpose(Image.open(path)).convert("RGB"))
@@ -81,7 +94,7 @@ def read_rgb(path: str) -> np.ndarray:
 
 def read_l(path: str) -> np.ndarray:
     """uint8 (H, W), as PIL.Image.open(path).convert("L")."""
-    img = _png(path) if path.lower().endswith(".png") else None
+    img = _decoded(path, orient=False)
     if img is None:
         Image, _ = _pil_image(path)
         return np.asarray(Image.open(path).convert("L"))

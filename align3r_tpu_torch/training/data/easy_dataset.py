@@ -1,10 +1,10 @@
 """Dataset algebra: `N @ dataset` resize, `+` concat, `N * dataset` repeat
 (port of align3r_tpu/training/data/easy_dataset.py, numpy only).
 
-The JAX package also patches these operators onto its image datasets'
-base class (easy_dataset.py:26-32); the port leaves that out until those
-datasets are ported (ROADMAP queue 1). Datasets that subclass ``EasyDataset``
-take part in the algebra.
+The JAX package patches these operators onto its image datasets' base
+class (easy_dataset.py:26-32); the port's `BaseStereoViewDataset`
+subclasses ``EasyDataset`` instead, as any dataset that takes part in the
+algebra does.
 
 Behavioural reference: the reference dust3r/datasets/base/easy_dataset.py
 (11-157): epoch-seeded permutations for resized datasets; all combinators

@@ -7,8 +7,8 @@ data parallelism) and dust3r/datasets/__init__.py (get_data_loader:20-54).
 
 Port of align3r_tpu/training/data/loader.py: the loader is a lightweight
 thread-prefetched iterator yielding numpy-stacked two-view batches, which the
-train driver moves to the device. Dataset strings raise NotImplementedError
-until the image datasets are ported (ROADMAP queue 1); dataset objects work.
+train driver moves to the device. `get_data_loader` takes a dataset object
+or a dataset expression (`build_dataset`).
 """
 from __future__ import annotations
 
@@ -217,12 +217,12 @@ class DataLoader:
 
 def get_data_loader(dataset, batch_size, num_workers=4, shuffle=True,
                     drop_last=True, world_size=1, rank=0):
-    """Reference-compatible entry (datasets/__init__.py:20-54); `dataset` is
-    a dataset object: len() and [(idx, ar_idx)] -> [view1, view2] dicts."""
+    """Reference-compatible entry (datasets/__init__.py:20-54); `dataset`
+    may be a dataset object (len() and [(idx, ar_idx)] -> [view1, view2]
+    dicts) or an eval()-style string expression."""
     if isinstance(dataset, str):
-        raise NotImplementedError(
-            f"dataset expression {dataset[:60]!r}: the port's image datasets "
-            "are not ported yet (ROADMAP queue 1); pass a dataset object")
+        from align3r_tpu_torch.training.data import build_dataset
+        dataset = build_dataset(dataset)
     return DataLoader(dataset, batch_size, shuffle=shuffle,
                       num_workers=num_workers, world_size=world_size,
                       rank=rank, drop_last=drop_last)

@@ -5,8 +5,11 @@ align3r_tpu/training/train.py:24-377).
 reference constructor string), optionally loads a reference ``.pth``
 (``pretrained``), freezes the encoder side and stores its matmul and conv
 weights in bf16 (``cast_frozen``), then runs the micro-step loop of
-``training/step.py`` over a dataset object. Per epoch it appends one JSON line
-to ``log.txt`` (mean micro-step loss, test loss, seconds), writes
+``training/step.py`` over a dataset expression (``"1000 @ SceneFlowDatasets(
+split='train', ROOT=..., resolution=[(512, 288)])"``, read through
+``training.data.build_dataset``) or a dataset object. Per epoch it appends one
+JSON line to ``log.txt`` (mean micro-step loss, test loss, seconds, and
+``data_s``, the seconds the loop waited on the loader), writes
 ``checkpoint-last`` (auto-resumed on the next call), ``checkpoint-best`` on
 the test loss and a ``checkpoint-{epoch}`` copy every ``keep_freq`` epochs,
 all ``torch.save`` files; at the end it exports ``checkpoint-final.pth`` in
@@ -14,12 +17,16 @@ the reference format ``{"model": state_dict}`` in fp32.
 
 One device: ``ckpt_backend="orbax"``, ``zero1`` and ``n_data > 1`` (the JAX
 package's data-parallel mesh) raise NotImplementedError until the multi-GPU
-slice (ROADMAP queue 1). The JAX ``profile`` option is not carried over:
-``python -m align3r_tpu_torch.tools.profile_train`` profiles the step.
+slice (ROADMAP queue 1). ``profile`` writes a ``torch.profiler`` trace of the
+first epoch to ``output_dir/profile/trace.json`` (the JAX package's
+``jax.profiler`` trace); ``python -m align3r_tpu_torch.tools.profile_train``
+splits one micro-step. ``python -m align3r_tpu_torch.tools.train`` is the
+command line.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -45,7 +52,7 @@ BATCH_KEYS = ("img", "pred_depth", "pts3d", "camera_pose", "valid_mask")
 class TrainArgs:
     model: str = "Align3RConfig()"            # config expression or ctor string
     pretrained: Optional[str] = None          # reference .pth to start from
-    train_dataset: Any = ""                   # a dataset object
+    train_dataset: Any = ""                   # an expression or a dataset object
     test_dataset: Any = ""
     seed: int = 0
     batch_size: int = 2
@@ -69,6 +76,7 @@ class TrainArgs:
     zero1: bool = False                       # multi-GPU: not ported yet
     remat: str = "full"                       # 'none' | 'full' | 'dots'
     head_bf16: bool = False                   # bf16 DPT conv pyramid
+    profile: bool = False                     # trace the first epoch
     max_steps_per_epoch: Optional[int] = None
     device: str = "cuda"
 
@@ -107,6 +115,14 @@ def _config(expr: str) -> Align3RConfig:
     return eval(expr, {"__builtins__": {}},
                 {"Align3RConfig": Align3RConfig, "VIT_L_512": VIT_L_512,
                  "TINY_TEST": TINY_TEST})
+
+
+def _profiler(args: TrainArgs, dev: torch.device):
+    os.makedirs(os.path.join(args.output_dir, "profile"), exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def train(args: TrainArgs) -> TrainResult:
@@ -173,9 +189,18 @@ def train(args: TrainArgs) -> TrainResult:
     for epoch in range(args.start_epoch, args.epochs):
         train_loader.set_epoch(epoch)
         t0 = time.time()
-        metrics = []
-        for it, batch in enumerate(train_loader):
+        metrics, data_s = [], 0.0
+        prof = _profiler(args, dev) if args.profile and epoch == args.start_epoch else None
+        if prof is not None:
+            prof.__enter__()
+        batches = iter(train_loader)
+        for it in itertools.count():
             if args.max_steps_per_epoch and it >= args.max_steps_per_epoch:
+                break
+            t = time.perf_counter()
+            batch = next(batches, None)
+            data_s += time.perf_counter() - t
+            if batch is None:
                 break
             metrics.append(train_step(put_batch(batch)))
             step += 1
@@ -185,6 +210,9 @@ def train(args: TrainArgs) -> TrainResult:
                     raise FloatingPointError(f"loss is {loss}, stopping training")
                 print(f"epoch {epoch} it {it}/{steps_per_epoch} loss {loss:.4f} "
                       f"lr {sched(opt.count):.2e}")
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(args.output_dir, "profile", "trace.json"))
         # one host sync per epoch: every micro-step's metrics as floats
         host = [{k: float(v) for k, v in m.items()} for m in metrics]
         bad = [i for i, h in enumerate(host) if not math.isfinite(h["loss"])]
@@ -212,7 +240,7 @@ def train(args: TrainArgs) -> TrainResult:
         rec = {"epoch": epoch,
                "train_loss": float(np.mean([h["loss"] for h in host])) if host else None,
                "test_loss": test_loss, "steps": len(host),
-               "train_s": train_secs, "time_s": time.time() - t0}
+               "train_s": train_secs, "data_s": data_s, "time_s": time.time() - t0}
         log.append(rec)
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")

@@ -1,5 +1,6 @@
 """Portable float maps (the SceneFlow / PointOdyssey depth format): the
-port's copy of align3r_tpu/training/data/datasets.py read_pfm."""
+port's copies of align3r_tpu/training/data/datasets.py read_pfm and
+datasets_preprocess/common.py write_pfm."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,3 +22,13 @@ def read_pfm(path):
         data = np.fromfile(f, endian + "f")
     shape = (h, w, 3) if color else (h, w)
     return np.flipud(data.reshape(shape)).copy()
+
+
+def write_pfm(path, arr):
+    """One-channel little-endian PFM of a (H, W) map, rows bottom to top."""
+    arr = np.asarray(arr, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n")
+        f.write(f"{arr.shape[1]} {arr.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        np.flipud(arr).astype("<f4").tofile(f)

@@ -170,6 +170,31 @@ final result line:
                 batch of 2, one refined map a frame at 1024x576). Prints
                 seconds per frame of each prior, the refine step's stage
                 seconds, and the card.
+ 13. data     - the training data path, run after `train`: the port's JPEG
+                codec built from csrc/jpeg_decode.cpp (its build seconds),
+                then a preprocessed FlyingThings3D folder in SceneFlow's
+                layout (2 TRAIN scenes of 6 frames and a TEST scene of 4,
+                960x540 _rgb.jpg at quality 75 4:2:0, PFM depth, PNG masks,
+                metadata, DepthPro-style priors) and a raw Sintel scene (6
+                PNG frames at 1024x436, .dpt, .cam, dynamic masks, priors),
+                written by the port's own writers under build/data. The
+                decoder's ms a frame and the encoder's source back at quality
+                95 (mean |diff| <= 2); load_images on the JPEG frames at size
+                512; the loader alone over the epoch the training sees (ms a
+                pair on one thread and on 4; every batch (288, 512), finite
+                images in [-1, 1], valid pixels in every view); then
+                tools.train.main over "24 @ SceneFlowDatasets(...) + 8 @
+                SintelDatasets(...)" (aug_crop 16, 512x288, seed 777) with a
+                SceneFlow test expression, at Align3RConfig(img_size=(288,
+                512)) from a seeded start checkpoint, batch 2, accum_iter 4,
+                1 epoch (16 micro-steps). Counters zeroed first; less the
+                test epoch's launches (an eval step's, measured on one test
+                batch), K6 must launch 80 times a micro-step and K1/K2 as
+                often as in `train`; finite losses, frozen weights
+                bit-identical, trainable ones moved, log.txt's record, a
+                strict reload of checkpoint-final.pth. Prints ms a micro-step
+                and the share of the epoch the loop waited on the loader
+                beside the card.
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base, in bf16 and fp32), K8 (the head tail at the main path's shape, bf16
 and fp32, and at (4, 72, 128, 256) fp32), both timed from a CUDA graph and
@@ -206,6 +231,11 @@ LN_ROTATE = 4   # inputs the LayerNorm row cycles through: 75-226 MB, past the L
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
 DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
+# the data phase: FlyingThings3D (SceneFlow layout) at 960x540, Sintel at
+# 1024x436; 24 + 8 pairs, one epoch of 16 micro-steps
+DATA_SCENES = (("TRAIN", "0000", 6), ("TRAIN", "0001", 6), ("TEST", "0000", 4))
+DATA_HW, SINTEL_HW, SINTEL_FRAMES = (540, 960), (436, 1024), 6
+DATA_PAIRS, DATA_WORKERS, DECODE_REPS, LOADER_ITEMS = 32, 4, 20, 6
 # the demo phase's kernel shapes, checked (untimed) beside the main path's:
 # K1/K2 batches (the encoder's chunk of 12 frames, the hierarchical solve's 6,
 # 3 and 2; the decoder's batch of 8 and its ragged tails) and the solves'
@@ -1522,25 +1552,29 @@ class SyntheticPairs:
         return self.items[idx[0] if isinstance(idx, tuple) else idx]
 
 
-def run_train(dev, tag, hw, n_pairs, accum, epochs, counters):
+def run_train(dev, tag, hw, n_pairs, accum, epochs, counters, exprs=None, workers=2):
     """train() at ViT-L width (Align3RConfig at `hw`) with the reference
     per-GPU recipe (batch 2, remat full, frozen encoder in bf16, fp32 heads)
-    over SyntheticPairs(n_pairs), from a seeded random start checkpoint. The
-    counters are zeroed right before the call. Returns (launches, checks,
-    stats): finite losses, trainable parameters moved, frozen ones
-    bit-identical, checkpoint-final.pth reloading strictly, the applied
-    updates; warm ms per micro-step and peak memory."""
+    over SyntheticPairs(n_pairs), from a seeded random start checkpoint; or,
+    with exprs = (train, test) dataset expressions, the same recipe through
+    the command line's `tools.train.main` (n_pairs: the training
+    expression's length). The counters are zeroed right before the call.
+    Returns (launches, checks, stats, result): finite losses, trainable
+    parameters moved, frozen ones bit-identical, log.txt's records,
+    checkpoint-final.pth reloading strictly, the applied updates; warm ms
+    per micro-step, the loader's wait and peak memory."""
     import math
     import torch
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
     from align3r_tpu_torch.models.config import Align3RConfig
+    from align3r_tpu_torch.tools import train as cli
     from align3r_tpu_torch.training.step import is_trainable
     from align3r_tpu_torch.training.train import (TrainArgs, export_torch_checkpoint,
                                                   train)
 
     t0 = time.perf_counter()
     cfg = Align3RConfig(img_size=hw)
-    ds = SyntheticPairs(n_pairs, hw=hw)
+    ds = SyntheticPairs(n_pairs, hw=hw) if exprs is None else None
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as out:
         # the recipe starts from a checkpoint: one from seeded random weights,
@@ -1557,17 +1591,27 @@ def run_train(dev, tag, hw, n_pairs, accum, epochs, counters):
         print(f"{tag}: data + start checkpoint in {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-        args = TrainArgs(model=f"Align3RConfig(img_size={tuple(hw)})", pretrained=pretrained,
-                         train_dataset=ds, batch_size=TRAIN_BATCH, accum_iter=accum,
-                         epochs=epochs, warmup_epochs=0, num_workers=2,
-                         output_dir=out, save_freq=epochs, keep_freq=10 ** 6,
-                         print_freq=4, remat="full", cast_frozen=True, head_bf16=False,
-                         device=str(dev))
+        model = f"Align3RConfig(img_size={tuple(hw)})"
+        if exprs is None:
+            args = TrainArgs(model=model, pretrained=pretrained,
+                             train_dataset=ds, batch_size=TRAIN_BATCH, accum_iter=accum,
+                             epochs=epochs, warmup_epochs=0, num_workers=workers,
+                             output_dir=out, save_freq=epochs, keep_freq=10 ** 6,
+                             print_freq=4, remat="full", cast_frozen=True, head_bf16=False,
+                             device=str(dev))
+        else:   # the command line's defaults are the recipe's: remat full, cast_frozen
+            argv = ["--model", model, "--pretrained", pretrained,
+                    "--train_dataset", exprs[0], "--test_dataset", exprs[1],
+                    "--batch_size", str(TRAIN_BATCH), "--accum_iter", str(accum),
+                    "--epochs", str(epochs), "--warmup_epochs", "0",
+                    "--num_workers", str(workers), "--output_dir", out,
+                    "--save_freq", str(epochs), "--keep_freq", str(10 ** 6),
+                    "--print_freq", "4", "--device", str(dev)]
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
         t1 = time.perf_counter()
-        res = train(args)
+        res = train(args) if exprs is None else cli.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         launches = {c.__name__: c.launches for c in counters}
@@ -1594,12 +1638,17 @@ def run_train(dev, tag, hw, n_pairs, accum, epochs, counters):
         fresh.load_state_dict(sd, strict=True, assign=True)
         reload_ok = all(fresh.state_dict()[k].dtype == torch.float32 for k in sd)
         del sd, fresh
+        with open(os.path.join(out, "log.txt")) as f:
+            records = [json.loads(line) for line in f]
     losses = [h["loss"] for h in res.history]
     checks = {
         "losses_finite": len(losses) == epochs * n_pairs // TRAIN_BATCH
         and all(math.isfinite(x) for x in losses),
         "trainable_moved": all(moved[g] > 0 for g in total),
         "frozen_bit_identical": not frozen_bad,
+        "log_records": [r["epoch"] for r in records] == list(range(epochs))
+        and all(math.isfinite(r["train_loss"]) and (exprs is None or math.isfinite(
+            r["test_loss"])) for r in records),
         "final_pth_reloads_strict": reload_ok,
         "applied_updates": res.optimizer.count == steps // accum >= 2,
     }
@@ -1609,9 +1658,10 @@ def run_train(dev, tag, hw, n_pairs, accum, epochs, counters):
              "loss_first": losses[0], "loss_last": losses[-1],
              "warm_ms_per_micro_step": ms_step,
              "train_pairs_per_s": TRAIN_BATCH / ms_step * 1e3,
+             "loader_wait_share": warm["data_s"] / warm["train_s"],
              "peak_mem_gb": peak, "moved_tensors": moved, "trainable_tensors": total,
              "frozen_changed": frozen_bad[:5]}
-    return launches, checks, stats
+    return launches, checks, stats, res
 
 
 def train_path(dev):
@@ -1622,8 +1672,8 @@ def train_path(dev):
 
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd,
                 el.edge_loss_bwd, sa.small_attention)
-    launches, checks, stats = run_train(dev, "train", (H, W), TRAIN_PAIRS, ACCUM,
-                                        TRAIN_EPOCHS, counters)
+    launches, checks, stats, _ = run_train(dev, "train", (H, W), TRAIN_PAIRS, ACCUM,
+                                           TRAIN_EPOCHS, counters)
     steps = stats["micro_steps"]
     checks["k6_80_per_micro_step"] = launches["small_attention"] == 80 * steps
     stats["k6_launches_per_micro_step"] = launches["small_attention"] / steps
@@ -1632,6 +1682,206 @@ def train_path(dev):
     if not all(checks.values()):
         raise AssertionError(f"train path checks failed: {checks}")
     return launches, stats
+
+
+# ------------------------------------------------------------- data phase
+
+def _smooth_rgb(h, w, phase=0.0, noise=None):
+    """A smooth colour field (uint8 (h, w, 3)), plus seeded noise if given."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(xx / (40 + 7 * c) + yy / 30 + phase + c)
+                    for c in range(3)], -1)
+    if noise is not None:
+        img = img + noise.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_data_inputs(root):
+    """The training layouts at the datasets' native sizes, written by the
+    port's own writers: FlyingThings3D in SceneFlow's preprocessed layout
+    (FlyingThings3D_proc/{TRAIN,TEST}/A/<seq>/left: _rgb.jpg at quality 75,
+    4:2:0, as the preprocess writes them, _depth.pfm, _mask.png,
+    _metadata.npz, a DepthPro-style _rgb_pred_depth_depthpro.npz) and one
+    Sintel scene in the raw layout (PNG frames, .dpt depth, .cam cameras,
+    dynamic_label_perfect masks, depth_prediction_depthpro priors). Smooth
+    synthetic depths (2-3 m), cam2world poses a small motion apart (world2cam
+    in Sintel's .cam), priors a 5% noisy depth. Returns (SceneFlow root,
+    Sintel's final/ folder, the first SceneFlow scene)."""
+    import numpy as np
+    from align3r_tpu_torch.utils.jpeg import write_jpeg
+    from align3r_tpu_torch.utils.pfm import write_pfm
+    from align3r_tpu_torch.utils.png import write_png
+    from align3r_tpu_torch.utils.sintel_io import TAG_FLOAT, depth_write
+
+    rng = np.random.default_rng(16)
+
+    def frame(h, w, k, f):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        depth = (2.5 + 0.5 * np.sin(xx / 90 + 0.2 * k) + 0.3 * np.cos(yy / 70)).astype(np.float32)
+        a = 0.02 * k
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        pose[:3, 3] = [0.05 * k, 0.01 * k, 0.02 * k]
+        K = np.array([[f, 0, (w - 1) / 2], [0, f, (h - 1) / 2], [0, 0, 1]], np.float32)
+        prior = (depth * (1 + 0.05 * rng.standard_normal(depth.shape))).astype(np.float32)
+        mask = np.full((h, w), 255, np.uint8)
+        mask[: h // 10, : w // 10] = 0
+        return _smooth_rgb(h, w, 0.3 * k, rng), depth, pose, K, prior, mask
+
+    sf = os.path.join(root, "sceneflow")
+    scenes = []
+    for split, seq, n in DATA_SCENES:
+        d = os.path.join(sf, "FlyingThings3D_proc", split, "A", seq, "left")
+        os.makedirs(d, exist_ok=True)
+        scenes.append(d)
+        for k in range(n):
+            img, depth, pose, K, prior, mask = frame(*DATA_HW, k, 1050.0)
+            stem = os.path.join(d, f"{k:04d}")
+            write_jpeg(img, stem + "_rgb.jpg")
+            write_pfm(stem + "_depth.pfm", depth)
+            write_png(mask, stem + "_mask.png")
+            np.savez(stem + "_metadata.npz", camera_intrinsics=K, camera_pose=pose)
+            np.savez(stem + "_rgb_pred_depth_depthpro.npz", depth=prior,
+                     focallength_px=np.float32(1050.0))
+    sintel = os.path.join(root, "sintel")
+    final = os.path.join(sintel, "MPI-Sintel-training_images", "training", "final")
+    sub = {s: os.path.join(sintel, "MPI-Sintel-depth-training", "training", s, "alley_1")
+           for s in ("depth", "dynamic_label_perfect", "camdata_left")}
+    sub["prior"] = os.path.join(sintel, "MPI-Sintel-training_images", "training",
+                                "depth_prediction_depthpro", "alley_1")
+    for d in [os.path.join(final, "alley_1"), *sub.values()]:
+        os.makedirs(d, exist_ok=True)
+    for k in range(1, SINTEL_FRAMES + 1):
+        img, depth, pose, K, prior, mask = frame(*SINTEL_HW, k, 688.0)
+        name = f"frame_{k:04d}"
+        write_png(img, os.path.join(final, "alley_1", name + ".png"))
+        depth_write(os.path.join(sub["depth"], name + ".dpt"), depth)
+        write_png(mask, os.path.join(sub["dynamic_label_perfect"], name + ".png"))
+        with open(os.path.join(sub["camdata_left"], name + ".cam"), "wb") as f:
+            np.float32(TAG_FLOAT).tofile(f)
+            K.astype(np.float64).tofile(f)
+            np.linalg.inv(pose)[:3].astype(np.float64).tofile(f)
+        np.savez(os.path.join(sub["prior"], name + ".npz"), depth=prior,
+                 focallength_px=np.float32(688.0))
+    return sf, final, scenes[0]
+
+
+def data_exprs(sf, final):
+    """The data phase's training and test expressions (the recipe's form)."""
+    kw = "aug_crop=16, resolution=[(512, 288)], seed=777"
+    return (f"24 @ SceneFlowDatasets(split='train', ROOT={sf!r}, {kw}) + "
+            f"8 @ SintelDatasets(split='train', ROOT={final!r}, {kw})",
+            f"4 @ SceneFlowDatasets(split='test', ROOT={sf!r}, "
+            "resolution=[(512, 288)], seed=777)")
+
+
+def data_path(dev, card, train_launches, train_stats):
+    """The training data path on the card (see the module docstring)."""
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.inference.images import load_images, read_rgb
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.ops import small_attention as sa
+    from align3r_tpu_torch.training.data import build_dataset, get_data_loader
+    from align3r_tpu_torch.training.step import make_eval_step
+    from align3r_tpu_torch.training.train import BATCH_KEYS
+    from align3r_tpu_torch.utils import jpeg
+
+    stats, checks = {}, {}
+    path, stats["jpeg_build_s"] = jpeg.build()
+    jpeg.library()
+    print(f"data: JPEG codec {path.name} built in {stats['jpeg_build_s']:.2f} s", flush=True)
+    root = os.path.join(HERE, "build", "data")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    sf, final, scene = write_data_inputs(root)
+    stats["write_s"] = time.perf_counter() - t0
+
+    # the decoder: ms a frame, and the encoder's source back within 2 levels
+    frames = sorted(glob.glob(os.path.join(scene, "*_rgb.jpg")))
+    with open(frames[0], "rb") as f:
+        data = f.read()
+    jpeg.decode_jpeg(data)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_REPS):
+        img = jpeg.decode_jpeg(data)
+    stats["decode_ms_per_frame"] = (time.perf_counter() - t0) / DECODE_REPS * 1e3
+    src = _smooth_rgb(*DATA_HW)
+    stats["q95_mean_abs_diff"] = float(np.abs(
+        jpeg.decode_jpeg(jpeg.encode_jpeg(src, 95)).astype(np.int32) - src).mean())
+    checks["decode_shape"] = img.shape == DATA_HW + (3,)
+    checks["q95_within_2"] = stats["q95_mean_abs_diff"] <= 2
+    # load_images on the scene's JPEG frames (the serving loader)
+    views = load_images(frames, size=512)
+    checks["load_images_jpeg"] = len(views) == len(frames) and all(
+        v["img"].shape == (1, H, W, 3) and np.isfinite(v["img"]).all() for v in views)
+    checks["read_rgb_is_decoder"] = bool((read_rgb(frames[0]) == img).all())
+
+    # the loader alone over the epoch the training sees (set_epoch(0), the same
+    # seeds): every batch at (288, 512), finite images in [-1, 1], valid pixels
+    train_expr, test_expr = exprs = data_exprs(sf, final)
+    ds = build_dataset(train_expr)
+    ds.set_epoch(0)
+    ds[0, 0]
+    t0 = time.perf_counter()
+    for i in range(1, 1 + LOADER_ITEMS):
+        ds[i, 0]
+    stats["loader_ms_per_pair_1_thread"] = (time.perf_counter() - t0) / LOADER_ITEMS * 1e3
+    dl = get_data_loader(train_expr, TRAIN_BATCH, num_workers=DATA_WORKERS)
+    dl.set_epoch(0)
+    t0 = time.perf_counter()
+    batches = list(dl)
+    stats["loader_ms_per_pair"] = (time.perf_counter() - t0) / (
+        len(batches) * TRAIN_BATCH) * 1e3
+    bad = [i for i, b in enumerate(batches) for v in b.values() if not (
+        (v["true_shape"] == (H, W)).all() and np.isfinite(v["img"]).all()
+        and v["img"].min() >= -1 and v["img"].max() <= 1
+        and v["valid_mask"].reshape(TRAIN_BATCH, -1).any(1).all())]
+    checks["batches_ok"] = len(batches) == DATA_PAIRS // TRAIN_BATCH and not bad
+    del batches, ds
+    print(f"data: decoder {stats['decode_ms_per_frame']:.2f} ms a {DATA_HW[1]}x{DATA_HW[0]} "
+          f"frame; loader {stats['loader_ms_per_pair']:.1f} ms a pair with {DATA_WORKERS} "
+          f"threads, {stats['loader_ms_per_pair_1_thread']:.1f} with one; "
+          f"q95 mean |diff| {stats['q95_mean_abs_diff']:.3f}; {card}", flush=True)
+
+    counters = (fs.attention_site, fs.mlp_site, sa.small_attention)
+    launches, tchecks, tstats, res = run_train(dev, "data", (H, W), DATA_PAIRS, ACCUM, 1,
+                                               counters, exprs=exprs, workers=DATA_WORKERS)
+    checks.update(tchecks)
+    # the eval step's launches on one test batch, to take the test epoch's out
+    test = get_data_loader(test_expr, TRAIN_BATCH, num_workers=1, shuffle=False)
+    test.set_epoch(0)
+    batch = next(iter(test))
+    for c in counters:
+        c.launches = 0
+    make_eval_step(res.model)({vn: {k: torch.as_tensor(np.asarray(v)).to(dev)
+                                    for k, v in bv.items() if k in BATCH_KEYS}
+                               for vn, bv in batch.items()})
+    torch.cuda.synchronize()
+    per_eval = {c.__name__: c.launches for c in counters}
+    del res
+    steps = tstats["micro_steps"]
+    per_step = {k: (launches[k] - len(test) * per_eval[k]) / steps for k in launches}
+    train_per_step = {k: train_launches[k] / train_stats["micro_steps"] for k in per_step}
+    checks["k6_80_per_micro_step"] = per_step["small_attention"] == 80
+    checks["k1_k2_as_train_phase"] = all(per_step[k] == train_per_step[k]
+                                         for k in ("attention_site", "mlp_site"))
+    stats.update(tstats)
+    stats.update({"launches_per_micro_step": per_step, "eval_launches_per_batch": per_eval,
+                  "train_phase_launches_per_micro_step": train_per_step, "card": card})
+    print(f"data: {tstats['warm_ms_per_micro_step']:.1f} ms a micro-step, "
+          f"{100 * tstats['loader_wait_share']:.2f}% of the epoch waiting on the loader; "
+          f"{card}", flush=True)
+    print(f"data: checks {json.dumps(checks)}", flush=True)
+    print(f"data: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"data path checks failed: {checks}")
+    # the training run's K6 launches less the test epoch's: those of its micro-steps
+    return {**launches, "small_attention": launches["small_attention"]
+            - len(test) * per_eval["small_attention"]}, stats
 
 
 # ----------------------------------------------------------------- phase 9
@@ -1663,8 +1913,8 @@ def long_path(dev):
 
     counters = (fa.flash_attention, fa.flash_attention_bwd, sa.small_attention,
                 fs.attention_site, fs.mlp_site)
-    launches, checks, stats = run_train(dev, "long", LONG_HW, LONG_PAIRS, LONG_ACCUM, 1,
-                                        counters)
+    launches, checks, stats, _ = run_train(dev, "long", LONG_HW, LONG_PAIRS, LONG_ACCUM, 1,
+                                           counters)
     steps = stats["micro_steps"]
     checks["k9_fwd_80_per_micro_step"] = launches["flash_attention"] == 80 * steps
     checks["k9_bwd_28_per_micro_step"] = launches["flash_attention_bwd"] == 28 * steps
@@ -2458,6 +2708,10 @@ def main() -> int:
         rows += k6_rows
         torch.cuda.empty_cache()
 
+        phase = "data"
+        data_launches, data_stats = data_path(dev, card, train_launches, train_stats)
+        torch.cuda.empty_cache()
+
         phase = "long"
         print("long: K9 gradient " + json.dumps(check_k9_grad(dev, gen)), flush=True)
         torch.cuda.empty_cache()
@@ -2510,7 +2764,8 @@ def main() -> int:
                     "align3r_tpu/ops/small_attention.py:47"),
     }
     # the path(s) each kernel's launches were counted on
-    paths = {"K5": {"flow": flow_launches}, "K6": {"train": train_launches},
+    paths = {"K5": {"flow": flow_launches},
+             "K6": {"train": train_launches, "data": data_launches},
              "K7": {"heads": heads_launches}, "K7 fp32": {"heads": heads_launches},
              "K8": {"heads": heads_launches}, "K8 fp32": {"heads": heads_launches},
              "K9": {"long": long_launches}, "K9 bwd": {"long": long_launches},
@@ -2543,7 +2798,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
                       "sam2_path": sam2_stats,
-                      "train_path": train_stats, "heads_path": heads_stats,
+                      "train_path": train_stats, "data_path": data_stats,
+                      "heads_path": heads_stats,
                       "demo_path": demo_stats, "prior_path": prior_stats,
                       "long_path": long_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1159,3 +1159,33 @@ def test_sam2_on_the_card_takes_k6_and_k9(dev):
     torch.cuda.synchronize()
     assert launched == [3 * trunk["small"], 2 * mem["flash"], 0]
     _close(out, ref, torch.float32)
+
+
+def test_train_from_dataset_strings_on_the_card(dev, tmp_path):
+    """The data phase's round trip at a small size: a SceneFlow folder of
+    `_rgb.jpg` frames (the port's decoder) and a Sintel folder of PNG frames,
+    written by the port's writers, read through dataset expressions by
+    `tools.train.main` on the card at a tiny width: finite losses, K6 at
+    every micro-step (128 tokens a view at 256x128, head dim 16, K6's gate),
+    checkpoint-final.pth reloads."""
+    from align3r_tpu_torch.tools import train as cli
+    from torch_data_fixtures import write_preprocessed_scene, write_sintel_scene
+    sf = tmp_path / "sf"
+    for i in range(2):
+        write_preprocessed_scene(str(sf / f"FlyingThings3D_proc/TRAIN/A/000{i}/left"), 4,
+                                 (144, 256), i)
+    sintel = write_sintel_scene(str(tmp_path / "sintel"), "alley_1", 4, (120, 280), 2)
+    kw = "resolution=[(256, 128)], aug_crop=8, seed=777"
+    expr = (f"4 @ SceneFlowDatasets(split='train', ROOT={str(sf)!r}, {kw}) + "
+            f"4 @ SintelDatasets(split='train', ROOT={sintel!r}, {kw})")
+    model = ("Align3RConfig(img_size=(128, 256), enc_embed_dim=64, enc_depth=4, "
+             "enc_num_heads=4, dec_embed_dim=64, dec_depth=12, dec_num_heads=4)")
+    before = sa.small_attention.launches
+    res = cli.main(["--model", model, "--train_dataset", expr, "--batch_size", "2",
+                    "--accum_iter", "2", "--epochs", "1", "--warmup_epochs", "0",
+                    "--num_workers", "2", "--output_dir", str(tmp_path / "out")])
+    steps = len(res.history)
+    assert steps == 4 and all(np.isfinite(h["loss"]) for h in res.history)
+    assert sa.small_attention.launches - before >= steps
+    sd = torch.load(tmp_path / "out" / "checkpoint-final.pth", weights_only=True)["model"]
+    assert set(sd) == set(res.model.state_dict())

@@ -10,7 +10,8 @@ align3r_tpu.inference.images.
 - load_images + stack_views give JAX's frames and masks exactly and its
   priors within 1e-6 of the largest value.
 - With PIL and OpenCV blocked, the loader, the writers and the demo import
-  and read a PNG folder, and a JPEG names the missing library.
+  and read a PNG folder and a baseline JPEG (the port's decoder, as PIL
+  reads it), and a progressive JPEG or a video names the missing library.
 """
 import os
 import subprocess
@@ -215,12 +216,16 @@ import align3r_tpu_torch.tools.demo, align3r_tpu_torch.pipeline, align3r_tpu_tor
 views = I.load_images(sys.argv[1], 224, traj_format="default")
 s = I.stack_views(views)
 assert s["imgs"].shape == (3, 224, 224, 3) and s["priors"][..., 2].max() > 0
-for path, lib in ((sys.argv[2], "Pillow"), (sys.argv[3], "OpenCV")):
+import numpy as np
+assert (I.read_rgb(sys.argv[2]) == np.load(sys.argv[5])).all()
+assert I.load_images(sys.argv[2], 224)[0]["img"].shape == (1, 224, 224, 3)
+for path, lib in ((sys.argv[4], "Pillow"), (sys.argv[3], "OpenCV")):
     try:
         I.load_images(path, 224)
         raise SystemExit("no error")
     except ImportError as e:
         assert path in str(e) and lib in str(e), e
+        assert lib == "OpenCV" or "SOF marker 0xC2" in str(e), e
 bad = [m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2") and sys.modules[m]]
 assert not bad, bad
 print("ok")
@@ -231,10 +236,14 @@ def test_loader_writers_and_demo_without_pil_or_cv2(tmp_path):
     root = tmp_path / "png"
     root.mkdir()
     _write_frames(str(root), [f"f{k}.png" for k in range(3)], (48, 64), 2)
-    jpg = tmp_path / "one.jpg"
-    PIL.Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpg)
+    frame = np.random.default_rng(3).integers(0, 255, (40, 56, 3), np.uint8)
+    jpg, prog = tmp_path / "one.jpg", tmp_path / "progressive.jpg"
+    PIL.Image.fromarray(frame).save(jpg)
+    PIL.Image.fromarray(frame).save(prog, progressive=True)
+    np.save(tmp_path / "one.npy", np.asarray(PIL.Image.open(jpg).convert("RGB")))
     vid = tmp_path / "v.mp4"
     vid.write_bytes(b"")
-    res = subprocess.run([sys.executable, "-c", BLOCKED, str(root), str(jpg), str(vid)],
+    res = subprocess.run([sys.executable, "-c", BLOCKED, str(root), str(jpg), str(vid),
+                          str(prog), str(tmp_path / "one.npy")],
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip().endswith("ok"), res.stderr

@@ -150,8 +150,12 @@ def test_train_refuses_what_is_not_ported(tmp_path):
     for kw in (dict(ckpt_backend="orbax"), dict(zero1=True), dict(n_data=2)):
         with pytest.raises(NotImplementedError):
             train(_args(tmp_path, **kw))
-    with pytest.raises(NotImplementedError, match="dataset"):
+    # dataset strings are ported: build_dataset evaluates them against the
+    # registry alone (test_torch_data.py holds the datasets to JAX's)
+    with pytest.raises(TypeError, match="ROOT"):
         get_data_loader("1000 @ SintelDatasets(split='train')", 2)
+    with pytest.raises(NameError):
+        get_data_loader("__import__('os')", 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train(_args(tmp_path, device="cuda"))
