@@ -277,28 +277,50 @@ def pack_scene(data: SceneData, cfg: SceneConfig,
     terms by image walks contiguous ranges (its order is the identity).
     packed_perm maps each slot to its [i-terms; j-terms] term, for the pose
     gather in the loss."""
-    E, A, _ = data.pred_i.shape
+    return dataclasses.replace(data, **{k: v[0] for k, v in
+                                        pack_observations([data], cfg.n_imgs, dtype).items()})
+
+
+def pack_observations(datas, n_imgs: int, dtype=torch.bfloat16) -> Dict:
+    """The packed fields of pack_scene for S same-shape scenes, each with a
+    leading scene axis: pred (S, 2E, 3, A), w (S, 2E, A), idx / perm / order
+    (S, 2E), offsets (S, n + 1). One K5 launch assembles every scene's pack
+    from the S natural-order packs laid end to end (each scene's perm offset
+    to its own rows)."""
+    S = len(datas)
+    E, A, _ = datas[0].pred_i.shape
     norm = float(E * A)
-    dev = data.pred_i.device
+    dev = datas[0].pred_i.device
 
-    def natural(p, w):
-        pp = torch.empty((E, 3, A), dtype=dtype, device=dev)
-        pp.copy_(p.transpose(1, 2))
-        return pp, (w / norm).to(dtype).contiguous()
+    def natural(name_p, name_w):
+        pp = torch.empty((S * E, 3, A), dtype=dtype, device=dev)
+        ww = torch.empty((S * E, A), dtype=dtype, device=dev)
+        for z, d in enumerate(datas):
+            pp[z * E:(z + 1) * E].copy_(getattr(d, name_p).transpose(1, 2))
+            ww[z * E:(z + 1) * E] = (getattr(d, name_w) / norm).to(dtype)
+        return pp, ww
 
-    pred_i, w_i = natural(data.pred_i, data.weight_i)
-    pred_j, w_j = natural(data.pred_j, data.weight_j)
-    idx = np.concatenate([data.ei.cpu().numpy(), data.ej.cpu().numpy()])
-    perm = np.argsort(idx, kind="stable").astype(np.int32)
-    to_dev = lambda a: torch.from_numpy(a).to(dev)
-    pred, w = permute_packed(pred_i, pred_j, w_i, w_j, to_dev(perm),
-                             to_dev(np.ones(2 * E, np.int32)))
-    order, offsets = term_csr(idx[perm], cfg.n_imgs)
-    return dataclasses.replace(data, packed_pred=pred, packed_w=w,
-                               packed_idx=to_dev(idx[perm].astype(np.int32)),
-                               packed_perm=to_dev(perm.astype(np.int64)),
-                               packed_order=order.to(dev),
-                               packed_offsets=offsets.to(dev))
+    pred_i, w_i = natural("pred_i", "weight_i")
+    pred_j, w_j = natural("pred_j", "weight_j")
+    idx, perm, gperm, order, offsets = [], [], [], [], []
+    for z, d in enumerate(datas):
+        ij = np.concatenate([d.ei.cpu().numpy(), d.ej.cpu().numpy()])
+        p = np.argsort(ij, kind="stable")
+        # term t < E is row z E + t of the i-packs, else row z E + t - E of the j-packs
+        gperm.append(np.where(p < E, z * E + p, S * E + z * E + p - E))
+        o, off = term_csr(ij[p], n_imgs)
+        idx.append(ij[p])
+        perm.append(p)
+        order.append(o.numpy())
+        offsets.append(off.numpy())
+    to_dev = lambda a, dt: torch.from_numpy(np.stack(a).astype(dt)).to(dev)
+    pred, w = permute_packed(pred_i, pred_j, w_i, w_j,
+                             torch.from_numpy(np.concatenate(gperm).astype(np.int32)).to(dev),
+                             torch.ones(2 * S * E, dtype=torch.int32, device=dev))
+    return {"packed_pred": pred.reshape(S, 2 * E, 3, A), "packed_w": w.reshape(S, 2 * E, A),
+            "packed_idx": to_dev(idx, np.int32), "packed_perm": to_dev(perm, np.int64),
+            "packed_order": to_dev(order, np.int32),
+            "packed_offsets": to_dev(offsets, np.int32)}
 
 
 def _pairwise_pts_loss_fused(params, data: SceneData, cfg: SceneConfig):
@@ -341,64 +363,80 @@ def solve(params, masks, data: SceneData, lrs, cfg: SceneConfig,
           loss_fn=pairwise_pts_loss, step0: int = 0, opt_state=None):
     """Adam over `lrs` (one step each). step0 offsets the step index passed
     to loss_fn; opt_state None starts fresh moments, else continues them.
-    Returns (params, losses (len(lrs),) tensor, opt_state)."""
+    loss_fn may return one loss or several (the batched solve's scenes,
+    alignment/batched.py); the gradient is that of their sum. Returns
+    (params, losses (len(lrs),) + the loss's shape, opt_state)."""
     if opt_state is None:
         opt_state = adam_init(params)
     keys = list(params)
-    dev = params[keys[0]].device
-    losses = torch.empty(len(lrs), dtype=torch.float32, device=dev)
+    losses = []
     p = {k: v.detach() for k, v in params.items()}
     for i, lr in enumerate(np.asarray(lrs, np.float32)):
         leaves = {k: v.requires_grad_(True) for k, v in p.items()}
         loss = loss_fn(leaves, data, cfg, step0 + i)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
-                                    allow_unused=True)
+        grads = torch.autograd.grad(loss if loss.ndim == 0 else loss.sum(),
+                                    [leaves[k] for k in keys], allow_unused=True)
         grads = {k: (torch.zeros_like(p[k]) if g is None else g) * masks[k]
                  for k, g in zip(keys, grads)}
         updates, opt_state = adam_update(grads, opt_state)
         lr32 = float(lr)
         p = {k: (p[k].detach() + (-lr32) * updates[k]) for k in keys}
-        losses[i] = loss.detach()
-    return p, losses, opt_state
+        losses.append(loss.detach())
+    return p, torch.stack(losses), opt_state
+
+
+def solve_phases(niter: int, cfg: SceneConfig, precision: str):
+    """The solve's phases under `precision`: (first step, end, cfg, pack),
+    pack the observations' pack dtype, or None for the plain fp32 loss.
+    'mixed': the first 80% of the steps through the fused kernels on a bf16
+    pack, the rest on an fp32 repack (the same Adam moments and step
+    index); 'bf16' (or a cfg with fast_solve) all on the bf16 pack; 'fp32'
+    the plain fp32 path (fast_solve off)."""
+    if precision not in ("mixed", "bf16", "fp32"):
+        raise ValueError(precision)
+    fast = dataclasses.replace(cfg, fast_solve=True)
+    if precision == "fp32":
+        return [(0, niter, dataclasses.replace(cfg, fast_solve=False), None)]
+    if precision == "bf16" or cfg.fast_solve:
+        return [(0, niter, fast, torch.bfloat16)]
+    k = int(niter * 0.8)
+    if k == 0 or k == niter:
+        return [(0, niter, cfg, None)]
+    return [(0, k, fast, torch.bfloat16), (k, niter, fast, torch.float32)]
+
+
+def solve_in_phases(params, masks, pack, lrs, phases, loss_fn=pairwise_pts_loss):
+    """solve() through `phases` (solve_phases), continuing the Adam moments
+    and the step index; pack(dtype) gives each phase's observations, the
+    previous phase's dropped first. Returns (params, losses)."""
+    st, parts = None, []
+    for lo, hi, cfg, dtype in phases:
+        data = None
+        data = pack(dtype)
+        params, losses, st = solve(params, masks, data, lrs[lo:hi], cfg, loss_fn,
+                                   step0=lo, opt_state=st)
+        parts.append(losses)
+    return params, torch.cat(parts)
 
 
 def global_alignment_loop(params, masks, data: SceneData, cfg: SceneConfig,
                           lr: float = 0.01, niter: int = 300,
                           schedule: str = "cosine", lr_min: float = 1e-6,
                           loss_fn=pairwise_pts_loss, precision: str = "mixed"):
-    """The full Adam solve. Returns (params, losses (niter,) tensor).
-
-    precision 'mixed' (default): the first 80% of the iterations through the
-    fused kernels on a bf16 pack, the rest on an fp32 repack, continuing the
-    same Adam moments and step index; 'bf16' all on the bf16 pack; 'fp32'
-    the plain fp32 path (fast_solve off)."""
-    if precision not in ("mixed", "bf16", "fp32"):
-        raise ValueError(precision)
+    """The full Adam solve under `precision` (solve_phases). Returns
+    (params, losses (niter,) tensor)."""
+    phases = solve_phases(niter, cfg, precision)
     # the solve's fp32 products must stay fp32 (no TF32 on the card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    lrs = schedule_array(schedule, niter, lr, lr_min)
-    if precision == "fp32":
-        exact = dataclasses.replace(cfg, fast_solve=False)
-        p, losses, _ = solve(params, masks, data, lrs, exact, loss_fn)
-        return p, losses
-    fast_cfg = dataclasses.replace(cfg, fast_solve=True)
-    if data.packed_pred is None:
-        data = pack_scene(data, cfg)
-    if precision == "bf16" or cfg.fast_solve:
-        p, losses, _ = solve(params, masks, data, lrs, fast_cfg, loss_fn)
-        return p, losses
-    k = int(niter * 0.8)
-    if k == 0 or k == niter:
-        p, losses, _ = solve(params, masks, data, lrs, cfg, loss_fn)
-        return p, losses
-    params, l1, st = solve(params, masks, data, lrs[:k], fast_cfg, loss_fn)
-    # drop the bf16 pack before building the fp32 one
-    data = dataclasses.replace(data, packed_pred=None, packed_w=None)
-    data = pack_scene(data, cfg, dtype=torch.float32)
-    params, l2, _ = solve(params, masks, data, lrs[k:], fast_cfg, loss_fn,
-                          step0=k, opt_state=st)
-    return params, torch.cat([l1, l2])
+
+    def pack(dtype):
+        if dtype is None or (dtype == torch.bfloat16 and data.packed_pred is not None):
+            return data
+        return pack_scene(dataclasses.replace(data, packed_pred=None, packed_w=None),
+                          cfg, dtype=dtype)
+    return solve_in_phases(params, masks, pack, schedule_array(schedule, niter, lr, lr_min),
+                           phases, loss_fn)
 
 
 # ------------------------------------------------- setting params (init)

@@ -11,6 +11,13 @@
 //   safe_norm: a distance of 0 where ||r||^2 = 0 (forward), a zero gradient
 //   where ||r||^2 <= EDGE_EPS (backward). All arithmetic is fp32.
 //
+// A scene axis (the batched multi-scene solve, alignment/batched.py): S
+// scenes of n images each are laid end to end, n S images, with each scene's
+// terms, CSR entries and offsets after the previous scene's. The walk is the
+// same; K3's second pass writes one loss per scene, the sum of its scene's
+// contiguous (tile, image) partials, and K4 reads the upstream gradient
+// g[image / n]. S = 1 is the single-scene kernel, bit for bit.
+//
 // Layout: observations packed once per solve, channel-major (e2, 3, A) in
 // bf16 or fp32 with A contiguous, weights (e2, A); proj (n, 3, A) fp32; a
 // CSR of each image's terms (order (e2,), offsets (n + 1,), term_csr).
@@ -124,11 +131,12 @@ struct EdgeArgs {
   const T* w;            // (e2, A)
   const int* order;      // (e2,) terms by image
   const int* offsets;    // (n + 1,)
-  const float* g;        // K4: upstream gradient (1,)
+  const float* g;        // K4: upstream gradient, one a scene (S,)
   float* partials;       // K3: (n, tiles); K4: dM partials (e2, 12, tiles)
   float* dproj;          // K4: (n, 3, A)
   unsigned* ticket;      // K3: zeroed here for the second pass
   int A, tiles, vec;
+  int n_scene;           // images a scene (K4: scene of an image = image / n_scene)
 };
 
 // a tile goes through the ring when it is whole and every row is 16-byte aligned
@@ -291,35 +299,38 @@ edge_fwd_kernel(const EdgeArgs<T> a) {
   }
 }
 
-// K3's second pass: block b sums partials [b EBLOCK_SUM, (b + 1) EBLOCK_SUM)
-// in a fixed order; the last block to finish sums the blocks' sums in block
-// order into out. The ticket was zeroed by the main kernel.
+// K3's second pass, one grid row a scene (blockIdx.y): block b of scene z
+// sums the scene's partials [b EBLOCK_SUM, (b + 1) EBLOCK_SUM) of its P in a
+// fixed order; the last block to finish sums each scene's block sums in block
+// order into out[z], one warp a scene. The ticket was zeroed by the main
+// kernel.
 __global__ void __launch_bounds__(EBLOCK_SUM)
 edge_loss_sum(const float* __restrict__ partials, int P, float* __restrict__ level,
               unsigned* __restrict__ ticket, float* __restrict__ out) {
   __shared__ float red[EBLOCK_SUM / 32];
   __shared__ bool last;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, z = blockIdx.y, nb = gridDim.x;
   const int i = blockIdx.x * EBLOCK_SUM + tid;
-  float v = warp_sum(i < P ? partials[i] : 0.f);
+  float v = warp_sum(i < P ? partials[(long long)z * P + i] : 0.f);
   if ((tid & 31) == 0) red[tid >> 5] = v;
   __syncthreads();
   if (tid == 0) {
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < EBLOCK_SUM / 32; ++k) s += red[k];
-    level[blockIdx.x] = s;
+    level[z * nb + blockIdx.x] = s;
     __threadfence();
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    last = atomicAdd(ticket, 1u) == nb * gridDim.y - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  if (tid < 32) {
+  const int lane = tid & 31;
+  for (int sc = tid >> 5; sc < (int)gridDim.y; sc += EBLOCK_SUM / 32) {
     float s = 0.f;
-    for (int b = tid; b < (int)gridDim.x; b += 32) s += __ldcg(level + b);
+    for (int b = lane; b < nb; b += 32) s += __ldcg(level + sc * nb + b);
     s = warp_sum(s);
-    if (tid == 0) *out = s;
+    if (lane == 0) out[sc] = s;
   }
 }
 
@@ -363,7 +374,7 @@ edge_bwd_kernel(const EdgeArgs<T> a) {
   const long long a0 = (long long)tile * ETILE;
   const int t0 = a.offsets[img], t1 = a.offsets[img + 1];
   ring_start(a, base, ring, t0, t1, a0);
-  const float gg = *a.g;
+  const float gg = a.g[img / a.n_scene];
   float pv[3][EPT], acc[3][EPT];
   load_proj(a, img, a0, ring, tid, pv);
 #pragma unroll
@@ -438,15 +449,16 @@ edge_dm_sum(const float* __restrict__ partials, int tiles, int nseg, float* __re
 }
 
 template <typename T>
-int launch_fwd(const EdgeArgs<T>& a, int n, float* level, float* out, cudaStream_t s) {
+int launch_fwd(const EdgeArgs<T>& a, int n, int scenes, float* level, float* out,
+               cudaStream_t s) {
   using C = EdgeCfg<T>;
   cudaError_t e = sm90::configure<edge_fwd_kernel<T>>(C::FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const int P = a.tiles * n;
-  edge_fwd_kernel<T><<<P, ETHREADS, C::FWD_SMEM, s>>>(a);
+  edge_fwd_kernel<T><<<a.tiles * n, ETHREADS, C::FWD_SMEM, s>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  edge_loss_sum<<<(P + EBLOCK_SUM - 1) / EBLOCK_SUM, EBLOCK_SUM, 0, s>>>(a.partials, P, level,
-                                                                        a.ticket, out);
+  const int P = a.tiles * a.n_scene;   // a scene's partials
+  edge_loss_sum<<<dim3((P + EBLOCK_SUM - 1) / EBLOCK_SUM, scenes), EBLOCK_SUM, 0, s>>>(
+      a.partials, P, level, a.ticket, out);
   return (int)cudaGetLastError();
 }
 
@@ -464,44 +476,49 @@ int launch_bwd(const EdgeArgs<T>& a, int n, int e2, float* dm, cudaStream_t s) {
 template <typename T>
 EdgeArgs<T> edge_args(const void* proj, const void* pw34, const void* pred, const void* w,
                       const void* order, const void* offsets, const void* g, void* partials,
-                      void* dproj, void* ticket, int A, int vec) {
+                      void* dproj, void* ticket, int A, int vec, int n_scene) {
   return EdgeArgs<T>{(const float*)proj, (const float*)pw34, (const T*)pred, (const T*)w,
                      (const int*)order, (const int*)offsets, (const float*)g,
                      (float*)partials, (float*)dproj, (unsigned*)ticket, A,
-                     (A + ETILE - 1) / ETILE, vec};
+                     (A + ETILE - 1) / ETILE, vec, n_scene};
 }
 
 }  // namespace a3r
 
 using namespace a3r;
 
-// K3. partials: n * tiles floats; level: ceil(n tiles / EBLOCK_SUM) floats;
-// ticket: one 32-bit word. vec: every row starts on a 16-byte boundary.
+// K3 over `scenes` scenes of n / scenes images each (n images in all).
+// partials: n * tiles floats; level: scenes * ceil(n tiles / scenes /
+// EBLOCK_SUM) floats; ticket: one 32-bit word; out: scenes floats. vec: every
+// row starts on a 16-byte boundary.
 A3R_EXPORT int a3r_edge_fwd(const void* proj, const void* pw34, const void* pred,
                             const void* w, const void* order, const void* offsets,
                             void* partials, void* level, void* ticket, void* out, int n,
-                            int A, int vec, int bf16_obs, void* stream) {
+                            int A, int vec, int bf16_obs, int scenes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (scenes < 1 || n % scenes) return (int)cudaErrorInvalidValue;
   if (bf16_obs)
     return launch_fwd(edge_args<bf16>(proj, pw34, pred, w, order, offsets, nullptr, partials,
-                                      nullptr, ticket, A, vec),
-                      n, (float*)level, (float*)out, s);
+                                      nullptr, ticket, A, vec, n / scenes),
+                      n, scenes, (float*)level, (float*)out, s);
   return launch_fwd(edge_args<float>(proj, pw34, pred, w, order, offsets, nullptr, partials,
-                                     nullptr, ticket, A, vec),
-                    n, (float*)level, (float*)out, s);
+                                     nullptr, ticket, A, vec, n / scenes),
+                    n, scenes, (float*)level, (float*)out, s);
 }
 
-// K4. dm_partials: e2 * 12 * tiles floats.
+// K4 over `scenes` scenes (g: one value a scene). dm_partials: e2 * 12 *
+// tiles floats.
 A3R_EXPORT int a3r_edge_bwd(const void* proj, const void* pw34, const void* pred,
                             const void* w, const void* order, const void* offsets,
                             const void* g, void* dproj, void* dm_partials, void* dm, int n,
-                            int e2, int A, int vec, int bf16_obs, void* stream) {
+                            int e2, int A, int vec, int bf16_obs, int scenes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (scenes < 1 || n % scenes) return (int)cudaErrorInvalidValue;
   if (bf16_obs)
     return launch_bwd(edge_args<bf16>(proj, pw34, pred, w, order, offsets, g, dm_partials,
-                                      dproj, nullptr, A, vec),
+                                      dproj, nullptr, A, vec, n / scenes),
                       n, e2, (float*)dm, s);
   return launch_bwd(edge_args<float>(proj, pw34, pred, w, order, offsets, g, dm_partials, dproj,
-                                     nullptr, A, vec),
+                                     nullptr, A, vec, n / scenes),
                     n, e2, (float*)dm, s);
 }

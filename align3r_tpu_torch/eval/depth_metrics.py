@@ -16,6 +16,8 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from align3r_tpu_torch.models.nn import device_or_raise
+
 
 # ------------------------------------------------------------- alignment
 
@@ -42,12 +44,13 @@ def align_lad(pred: np.ndarray, gt: np.ndarray, s_init=None, t_init=0.0):
 
 
 def align_lad2(pred: np.ndarray, gt: np.ndarray, s_init=None, lr=1e-4,
-               max_iters=1000, tol=1e-6, device="cpu"):
+               max_iters=1000, tol=1e-6, device="cuda"):
     """LAD via Adam on (s, t) (depth_test.py:495-528): the loss sum |s pred +
     t - gt| at the current (s, t), then one Adam step, stopping when the
     loss moves by less than `tol`."""
     if s_init is None:
         s_init = float(np.median(gt) / max(np.median(pred), 1e-12))
+    device = device_or_raise(device)
     p = torch.as_tensor(np.asarray(pred, np.float32), device=device)
     g = torch.as_tensor(np.asarray(gt, np.float32), device=device)
     s = torch.tensor([s_init], dtype=torch.float32, device=device, requires_grad=True)
@@ -113,10 +116,10 @@ def depth_metrics(aligned_pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
 def evaluate_sequence_depth(pred_depths: np.ndarray, gt_depths: np.ndarray,
                             valid_masks: np.ndarray | None = None,
                             align: str = "lad", depth_max: float = 70.0,
-                            depth_eps: float = 1e-5, device="cpu") -> Dict[str, float]:
+                            depth_eps: float = 1e-5, device="cuda") -> Dict[str, float]:
     """Align a whole sequence jointly (one s, t per sequence, the reference
     protocol) then compute metrics. pred / gt: (T, H, W). `device` is where
-    align_lad2 runs."""
+    align_lad2 runs: the card unless the caller passes "cpu"."""
     if valid_masks is None:
         valid_masks = (gt_depths > 0) & (gt_depths < depth_max)
     pred = np.asarray(pred_depths, np.float64)[valid_masks]

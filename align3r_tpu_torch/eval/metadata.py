@@ -89,8 +89,10 @@ dataset_metadata = {
 }
 
 
-def process_slice(items: Sequence, n_proc: int = 1, proc_id: int = 0):
+def process_slice(items: Sequence, n_proc: Optional[int] = None,
+                  proc_id: Optional[int] = None):
     """Process `proc_id` of `n_proc`'s share of a work list (every n_proc-th
-    item; JAX parallel/mesh.py process_slice, with one process by default
-    where JAX reads its process count)."""
-    return list(items)[proc_id::n_proc]
+    item): parallel.mesh.process_slice, which reads the live world size and
+    rank where they are not given."""
+    from align3r_tpu_torch.parallel.mesh import process_slice as live_slice
+    return live_slice(items, n_proc, proc_id)

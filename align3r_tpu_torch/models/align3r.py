@@ -35,16 +35,15 @@ from align3r_tpu_torch.models import blocks as B
 from align3r_tpu_torch.models.nn import device_or_raise
 from align3r_tpu_torch.models.dpt_head import (DPTHead, apply_dpt_head,
                                                dpt_head_params, prepare_dpt_head)
-from align3r_tpu_torch.models.rope import make_grid_positions
+from align3r_tpu_torch.models.rope import make_grid_positions, sincos_pos_embed
 
 
 class Align3R(nn.Module):
     def __init__(self, cfg: Align3RConfig):
         super().__init__()
-        if cfg.head_type != "dpt" or cfg.pos_embed == "cosine":
-            raise NotImplementedError(
-                f"head_type={cfg.head_type!r}, pos_embed={cfg.pos_embed!r}: "
-                "the port runs DPT heads with RoPE")
+        if cfg.head_type != "dpt":
+            # as JAX init_align3r: the linear head is models/linear_head.py alone
+            raise NotImplementedError(f"head_type={cfg.head_type!r}: Align3R runs DPT heads")
         self.cfg = cfg
         De, Dd = cfg.enc_embed_dim, cfg.dec_embed_dim
         self.patch_embed = B.PatchEmbed(cfg.patch_size, 3, De)
@@ -87,6 +86,7 @@ class Align3R(nn.Module):
             x = B.apply_patch_embed(self.patch_embed.proj.weight,
                                     self.patch_embed.proj.bias,
                                     torch.cat([img1, img2]).to(dtype), ps)
+            x = _add_cosine(cfg, x, pos, cfg.enc_embed_dim)
             block = _ckpt(functools.partial(
                 B.apply_block, num_heads=cfg.enc_num_heads,
                 rope_base=cfg.effective_rope_base, attn_impl=attn_impl),
@@ -121,8 +121,10 @@ class Align3R(nn.Module):
             return L.dense(t, conv.weight[:, :, 0].t(), conv.bias)
 
         de = self.decoder_embed
-        f1 = L.dense(feat1.to(dtype), de.weight.t(), de.bias)
-        f2 = L.dense(feat2.to(dtype), de.weight.t(), de.bias)
+        f1 = _add_cosine(cfg, L.dense(feat1.to(dtype), de.weight.t(), de.bias),
+                         pos[:Bn], cfg.dec_embed_dim)
+        f2 = _add_cosine(cfg, L.dense(feat2.to(dtype), de.weight.t(), de.bias),
+                         pos[Bn:], cfg.dec_embed_dim)
         f1 = f1 + zero_conv(0, pc[:Bn])
         f2 = f2 + zero_conv(0, pc[Bn:])
         f = torch.stack([f1, f2])                              # (2, B, N, D)
@@ -288,6 +290,15 @@ def init_align3r_(model: Align3R, seed: int = 0) -> Align3R:
 
 # ------------------------------------------------------------------ forward
 
+def _add_cosine(cfg, x, pos, dim: int):
+    """pos_embed='cosine': x plus the sin-cos table of its token positions,
+    cast to x's dtype (JAX align3r.py:111-113, :163-166); the attention
+    sites then run without RoPE (identity tables). Other configs: x."""
+    if cfg.pos_embed != "cosine":
+        return x
+    return x + sincos_pos_embed(pos, dim).to(x.dtype)
+
+
 def _grid_pos(pm: PreparedAlign3R, H: int, W: int, device):
     p = pm.cfg.patch_size
     return make_grid_positions(H // p, W // p, device=device)
@@ -299,7 +310,7 @@ def encode_images(pm: PreparedAlign3R, imgs):
     Bn, H, W, _ = imgs.shape
     x = B.apply_patch_embed(*pm.patch_embed, imgs.to(pm.dtype), cfg.patch_size)
     pos = _grid_pos(pm, H, W, imgs.device)
-    x = x[None]
+    x = _add_cosine(cfg, x, pos, cfg.enc_embed_dim)[None]
     for p in pm.enc_blocks:
         x = B.apply_block_prepared(p, x, pos, cfg.enc_num_heads, cfg.effective_rope_base)
     return L.layernorm(x[0], *pm.enc_norm).float()
@@ -321,8 +332,9 @@ def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw):
     hooks = cfg.dpt_hooks()
     Bn = feat1.shape[0]
     pos = make_grid_positions(*grid_hw, device=feat1.device)
-    f1 = L.dense(feat1.to(dt), *pm.decoder_embed)
-    f2 = L.dense(feat2.to(dt), *pm.decoder_embed)
+    # the sin-cos tables go on the decoder streams, not on the prior tokens
+    f1 = _add_cosine(cfg, L.dense(feat1.to(dt), *pm.decoder_embed), pos, cfg.dec_embed_dim)
+    f2 = _add_cosine(cfg, L.dense(feat2.to(dt), *pm.decoder_embed), pos, cfg.dec_embed_dim)
     pc = pc_tokens.to(dt)
     f1 = f1 + L.dense(pc[:Bn], *pm.zero_convs[0])
     f2 = f2 + L.dense(pc[Bn:], *pm.zero_convs[0])

@@ -58,3 +58,21 @@ def make_grid_positions(h: int, w: int, batch: int | None = None,
     if batch is not None:
         pos = pos[None].expand(batch, h * w, 2)
     return pos
+
+
+# ------------------------------------------- sincos tables (pos_embed='cosine')
+
+def sincos_pos_embed_1d(dim: int, pos):
+    """MAE-style 1-D sin-cos table at positions `pos` (...,) -> (..., dim)
+    fp32 (JAX rope.py:108-115)."""
+    omega = 1.0 / 10000.0 ** (torch.arange(dim // 2, dtype=torch.float32,
+                                           device=pos.device) / (dim / 2.0))
+    out = pos.float()[..., None] * omega
+    return torch.cat([torch.sin(out), torch.cos(out)], dim=-1)
+
+
+def sincos_pos_embed(positions, dim: int):
+    """2-D sin-cos table at token positions (..., 2) of (y, x) -> (..., dim)
+    fp32: the first half encodes x, the second y (JAX rope.py:118-126)."""
+    return torch.cat([sincos_pos_embed_1d(dim // 2, positions[..., 1]),
+                      sincos_pos_embed_1d(dim // 2, positions[..., 0])], dim=-1)

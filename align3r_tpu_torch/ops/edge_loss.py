@@ -23,6 +23,15 @@ walk: a block owns a (tile of EDGE_TILE pixels, image) pair.
 the kernels' blocked form in PyTorch (the same pairs, partials and second
 passes), for the CPU tests.
 
+A scene axis (``scenes=S``, the batched multi-scene solve of
+alignment/batched.py): S scenes of n images each laid end to end, n S images,
+each scene's terms, ``order`` entries and ``offsets`` after the previous
+scene's (:func:`stack_packs`); K3 returns S losses, each its scene's sum, and
+K4 takes one upstream gradient a scene. ``scenes=None`` is the single-scene
+call (a scalar loss). ``EdgeLoss`` under ``torch.func.vmap`` makes the one
+scene-axis launch (its ``vmap`` rule), so a per-scene loss vmapped over S
+scenes runs K3 and K4 once an iteration for all of them.
+
 Dispatch: CPU tensors take the plain version; CUDA tensors launch the kernel
 (counted on the wrapper's ``launches``) or raise. There is no fallback.
 """
@@ -73,19 +82,34 @@ def _residual(proj, pw34, pred, idx):
     return pv - al, pd
 
 
-def edge_loss_fwd_plain(proj, pw34, pred, w, idx):
-    """Plain PyTorch version of K3 (fp32 arithmetic on the stored values)."""
+def _term_scene(idx, n: int, scenes: int):
+    """The scene of each term: its image // (n / scenes)."""
+    if scenes < 1 or n % scenes:
+        raise ValueError(f"{n} images do not split into {scenes} scenes")
+    return torch.div(idx.long(), n // scenes, rounding_mode="floor")
+
+
+def edge_loss_fwd_plain(proj, pw34, pred, w, idx, scenes=None):
+    """Plain PyTorch version of K3 (fp32 arithmetic on the stored values):
+    the loss, or with `scenes` its (scenes,) per-scene sums."""
     r, _ = _residual(proj, pw34, pred, idx)
     sq = (r * r).sum(dim=1)
     d = torch.where(sq > 0, torch.sqrt(torch.clamp(sq, min=EPS)),
                     torch.zeros_like(sq))
-    return (w.float() * d).sum()
+    if scenes is None:
+        return (w.float() * d).sum()
+    per_term = (w.float() * d).sum(dim=1)
+    return torch.zeros(scenes, dtype=torch.float32, device=proj.device).index_add_(
+        0, _term_scene(idx, proj.shape[0], scenes), per_term)
 
 
-def edge_loss_bwd_plain(g, proj, pw34, pred, w, idx):
-    """Plain PyTorch version of K4: (dproj (n, 3, A), dM (e2, 3, 4))."""
+def edge_loss_bwd_plain(g, proj, pw34, pred, w, idx, scenes=None):
+    """Plain PyTorch version of K4: (dproj (n, 3, A), dM (e2, 3, 4)); with
+    `scenes`, g holds one value a scene."""
     r, pd = _residual(proj, pw34, pred, idx)
     sq = (r * r).sum(dim=1)
+    if scenes is not None:
+        g = g.reshape(scenes)[_term_scene(idx, proj.shape[0], scenes)][:, None]
     scale = torch.where(sq > EPS, g * w.float() * torch.rsqrt(sq),
                         torch.zeros_like(sq))
     u = scale[:, None, :] * r                                   # (e2, 3, A)
@@ -118,10 +142,11 @@ def _walk(proj, pw34, pred, w, order, offsets):
         yield img, terms, r, p1, _tiled(w.index_select(0, terms).float(), tiles)
 
 
-def edge_loss_fwd_tiles_plain(proj, pw34, pred, w, idx, order, offsets):
+def edge_loss_fwd_tiles_plain(proj, pw34, pred, w, idx, order, offsets, scenes=None):
     """K3 in its blocked form: one partial per (tile, image) pair (the sum
     over the image's terms of w d on the tile), then the second pass: sums of
-    EDGE_SUM_BLOCK partials in image-major order, and their sum."""
+    EDGE_SUM_BLOCK partials in image-major order, and their sum; with
+    `scenes`, the same pass over each scene's contiguous partials, (scenes,)."""
     del idx                                     # the walk reads the CSR
     tiles = edge_tiles(proj.shape[-1])
     partials = torch.zeros(proj.shape[0], tiles, dtype=torch.float32, device=proj.device)
@@ -129,34 +154,42 @@ def edge_loss_fwd_tiles_plain(proj, pw34, pred, w, idx, order, offsets):
         sq = (r * r).sum(dim=1)
         d = torch.where(sq > 0, torch.sqrt(torch.clamp(sq, min=EPS)), torch.zeros_like(sq))
         partials[img] = (wt * d).sum(dim=(0, 2))
-    flat = partials.reshape(-1)
-    blocks = -(-flat.numel() // EDGE_SUM_BLOCK)
-    level = torch.nn.functional.pad(flat, (0, blocks * EDGE_SUM_BLOCK - flat.numel()))
-    return level.reshape(blocks, EDGE_SUM_BLOCK).sum(dim=1).sum()
+    seg = partials.reshape(1 if scenes is None else scenes, -1)
+    blocks = -(-seg.shape[1] // EDGE_SUM_BLOCK)
+    level = torch.nn.functional.pad(seg, (0, blocks * EDGE_SUM_BLOCK - seg.shape[1]))
+    loss = level.reshape(seg.shape[0], blocks, EDGE_SUM_BLOCK).sum(dim=2).sum(dim=1)
+    return loss[0] if scenes is None else loss
 
 
-def edge_loss_bwd_tiles_plain(g, proj, pw34, pred, w, idx, order, offsets):
+def edge_loss_bwd_tiles_plain(g, proj, pw34, pred, w, idx, order, offsets, scenes=None):
     """K4 in its blocked form: each (tile, image) pair sums dproj over the
     image's terms and writes one 12-value dM partial per (term, tile); the
-    second pass sums each (term, value) over its tiles in tile order."""
+    second pass sums each (term, value) over its tiles in tile order. With
+    `scenes`, an image of scene z reads g[z]."""
     del idx
     n, _, A = proj.shape
     tiles = edge_tiles(A)
     e2 = pred.shape[0]
+    n_scene = n if scenes is None else n // scenes
+    g = g.reshape(-1)
     dproj = torch.zeros(n, 3, tiles, EDGE_TILE, dtype=torch.float32, device=proj.device)
     partials = torch.zeros(e2, 3, 4, tiles, dtype=torch.float32, device=proj.device)
     for img, terms, r, p1, wt in _walk(proj, pw34, pred, w, order, offsets):
         sq = (r * r).sum(dim=1)
-        scale = torch.where(sq > EPS, g * wt * torch.rsqrt(sq), torch.zeros_like(sq))
+        scale = torch.where(sq > EPS, g[img // n_scene] * wt * torch.rsqrt(sq),
+                            torch.zeros_like(sq))
         u = scale[:, None] * r                                # (k, 3, tiles, TILE)
         dproj[img] = u.sum(dim=0)
         partials[terms] = -torch.einsum("ecta,ekta->eckt", u, p1)
     return dproj.reshape(n, 3, -1)[..., :A].contiguous(), partials.sum(dim=-1)
 
 
-def _check_cuda(proj, pw34, pred, w, idx, order, offsets):
+def _check_cuda(proj, pw34, pred, w, idx, order, offsets, scenes=None):
     """Raise on what K3/K4 cannot take; return 1 when every row is 16-byte
     aligned (the ring's bulk copies), else 0 (the element path)."""
+    if scenes is not None and (scenes < 1 or proj.shape[0] % scenes):
+        raise ValueError(f"K3/K4: {proj.shape[0]} images do not split into "
+                         f"{scenes} scenes")
     if pred.dtype not in (torch.bfloat16, torch.float32) or w.dtype != pred.dtype:
         raise ValueError(f"K3/K4 store observations in bf16 or fp32; got "
                          f"pred {pred.dtype}, w {w.dtype}")
@@ -181,41 +214,45 @@ def _check_cuda(proj, pw34, pred, w, idx, order, offsets):
                and all(t.data_ptr() % 16 == 0 for t in (proj, pw34, pred, w)))
 
 
-def edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets):
-    """K3: the scalar loss (fp32). order, offsets = term_csr(idx, n), on the
-    card; the plain version (CPU tensors) reads idx alone."""
+def edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets, scenes=None):
+    """K3: the scalar loss (fp32), or with `scenes` the (scenes,) per-scene
+    losses. order, offsets = term_csr(idx, n), on the card; the plain version
+    (CPU tensors) reads idx alone."""
     if not proj.is_cuda:
-        return edge_loss_fwd_plain(proj, pw34, pred, w, idx)
-    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets)
+        return edge_loss_fwd_plain(proj, pw34, pred, w, idx, scenes)
+    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets, scenes)
     lib = _lib.library()
     n, A = proj.shape[0], pred.shape[-1]
+    S = 1 if scenes is None else scenes
     P = edge_tiles(A) * n
-    blocks = -(-P // EDGE_SUM_BLOCK)
-    # the partials, the second pass's block sums, its ticket and the loss
-    scratch = torch.empty(P + blocks + 2, dtype=torch.float32, device=proj.device)
+    blocks = S * -(-(P // S) // EDGE_SUM_BLOCK)
+    # the partials, the second pass's block sums, its ticket and the losses
+    scratch = torch.empty(P + blocks + 1 + S, dtype=torch.float32, device=proj.device)
     ptr = scratch.data_ptr()
     _lib.check(lib.a3r_edge_fwd(proj.data_ptr(), pw34.data_ptr(), pred.data_ptr(),
                                 w.data_ptr(), order.data_ptr(), offsets.data_ptr(), ptr,
                                 ptr + 4 * P, ptr + 4 * (P + blocks),
                                 ptr + 4 * (P + blocks + 1), n, A, vec,
-                                int(pred.dtype == torch.bfloat16), _lib.stream()),
+                                int(pred.dtype == torch.bfloat16), S, _lib.stream()),
                "K3 edge_loss_fwd")
     edge_loss_fwd.launches += 1
-    return scratch[-1]
+    return scratch[-1] if scenes is None else scratch[-S:]
 
 
 edge_loss_fwd.launches = 0
 
 
-def edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets):
-    """K4: (dproj (n, 3, A) fp32, dM (e2, 3, 4) fp32) for upstream g.
-    order, offsets = term_csr(idx, n), on the card."""
+def edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets, scenes=None):
+    """K4: (dproj (n, 3, A) fp32, dM (e2, 3, 4) fp32) for upstream g, one
+    value, or with `scenes` one a scene. order, offsets = term_csr(idx, n), on
+    the card."""
     if not proj.is_cuda:
-        return edge_loss_bwd_plain(g, proj, pw34, pred, w, idx)
-    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets)
+        return edge_loss_bwd_plain(g, proj, pw34, pred, w, idx, scenes)
+    vec = _check_cuda(proj, pw34, pred, w, idx, order, offsets, scenes)
     lib = _lib.library()
     n, e2, A = proj.shape[0], pred.shape[0], pred.shape[-1]
-    g = g.reshape(1).float().contiguous()
+    S = 1 if scenes is None else scenes
+    g = g.reshape(S).float().contiguous()
     dproj = torch.empty_like(proj)
     partials = torch.empty(e2 * 12 * edge_tiles(A), dtype=torch.float32,
                            device=proj.device)
@@ -225,7 +262,7 @@ def edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets):
                                 order.data_ptr(), offsets.data_ptr(),
                                 g.data_ptr(), dproj.data_ptr(),
                                 partials.data_ptr(), dm.data_ptr(), n, e2, A, vec,
-                                int(pred.dtype == torch.bfloat16),
+                                int(pred.dtype == torch.bfloat16), S,
                                 _lib.stream()), "K4 edge_loss_bwd")
     edge_loss_bwd.launches += 1
     return dproj, dm
@@ -286,21 +323,59 @@ def permute_packed(pred_i_p, pred_j_p, w_i_p, w_j_p, perm, valid):
 permute_packed.launches = 0
 
 
+def stack_packs(idx, order, offsets, n: int):
+    """The scene-axis layout of S same-shape packs, (S, e2) idx and order and
+    (S, n + 1) offsets of one scene each, laid end to end: idx (S e2,) with
+    scene z's images offset by z n, order (S e2,) with its terms offset by
+    z e2, and offsets (S n + 1,) with its entries offset by z e2."""
+    S, e2 = idx.shape
+    z = torch.arange(S, dtype=torch.int32, device=idx.device)[:, None]
+    flat_off = torch.cat([(offsets[:, :-1] + z * e2).reshape(-1),
+                          offsets.new_full((1,), S * e2)])
+    return ((idx + z * n).reshape(-1), (order + z * e2).reshape(-1), flat_off)
+
+
 class EdgeLoss(torch.autograd.Function):
-    """loss(proj, pw34) with frozen observations; K3 forward, K4 backward."""
+    """loss(proj, pw34) with frozen observations; K3 forward, K4 backward.
+    ``scenes`` (S) takes S scenes laid end to end and gives S losses."""
 
     @staticmethod
-    def forward(ctx, proj, pw34, pred, w, idx, order, offsets):
-        proj = proj.contiguous()
-        pw34 = pw34.contiguous()
-        ctx.save_for_backward(proj, pw34, pred, w, idx, order, offsets)
-        return edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets)
+    def forward(proj, pw34, pred, w, idx, order, offsets, scenes=None):
+        return edge_loss_fwd(proj.contiguous(), pw34.contiguous(), pred, w, idx, order,
+                             offsets, scenes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        proj, pw34, pred, w, idx, order, offsets = inputs[:7]
+        ctx.save_for_backward(proj.contiguous(), pw34.contiguous(), pred, w, idx, order,
+                              offsets)
+        ctx.scenes = inputs[7] if len(inputs) > 7 else None
 
     @staticmethod
     def backward(ctx, g):
         proj, pw34, pred, w, idx, order, offsets = ctx.saved_tensors
-        dproj, dm = edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets)
-        return dproj, dm, None, None, None, None, None
+        dproj, dm = edge_loss_bwd(g, proj, pw34, pred, w, idx, order, offsets, ctx.scenes)
+        return (dproj, dm) + (None,) * (len(ctx.needs_input_grad) - 2)
+
+    @staticmethod
+    def vmap(info, in_dims, proj, pw34, pred, w, idx, order, offsets, scenes=None):
+        """torch.func.vmap over S scenes: one scene-axis launch. Each input's
+        scene axis is moved first (an input without one is shared by every
+        scene); the scenes are laid end to end (stack_packs) and EdgeLoss runs
+        once with scenes=S, differentiable by autograd as any launch."""
+        if scenes is not None:
+            raise ValueError("EdgeLoss under vmap takes one scene a call (scenes=None)")
+        S = info.batch_size
+        lead = lambda t, d: (t.movedim(d, 0) if d is not None
+                             else t.expand(S, *t.shape)).contiguous()
+        proj, pw34, pred, w, idx, order, offsets = (
+            lead(t, d) for t, d in zip((proj, pw34, pred, w, idx, order, offsets), in_dims))
+        n = proj.shape[1]
+        idx, order, offsets = stack_packs(idx, order, offsets, n)
+        flat = lambda t: t.reshape(-1, *t.shape[2:])
+        out = EdgeLoss.apply(flat(proj), flat(pw34), flat(pred), flat(w), idx, order,
+                             offsets, S)
+        return out, 0
 
 
 def edge_loss(proj, pw34, pred, w, idx, order, offsets):

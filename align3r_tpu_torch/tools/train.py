@@ -7,7 +7,11 @@
         [--device cuda | cpu]
 
 Every flag of tool/train.py, and `--device`: training runs on the card
-unless `--device cpu` is asked for, and raises without CUDA. The dataset
+unless `--device cpu` is asked for, and raises without CUDA. Data-parallel
+training (training/train.py): `torchrun --nproc_per_node N -m
+align3r_tpu_torch.tools.train ... [--n_data N] [--zero1] [--ckpt_backend
+orbax]`, `--batch_size` being the global batch; or N processes with
+ALIGN3R_COORDINATOR=host:port, ALIGN3R_NUM_PROCESSES=N, ALIGN3R_PROCESS_ID=r. The dataset
 expressions are read by `training.data.build_dataset` over the preprocessed
 layout (`*_rgb.jpg` frames are decoded by the port's own JPEG decoder, so no
 imaging library is needed). `main(argv)` returns the `TrainResult`.
@@ -47,6 +51,12 @@ def get_args_parser():
                         "conv + postprocess); the default keeps the reference's "
                         "fp32-head AMP boundary")
     p.add_argument("--max_steps_per_epoch", type=int, default=None)
+    p.add_argument("--n_data", type=int, default=None,
+                   help="data-parallel ranks, one GPU each (default: the world size)")
+    p.add_argument("--zero1", action="store_true", default=False,
+                   help="split the Adam moments and accumulation over the ranks")
+    p.add_argument("--ckpt_backend", default=d.ckpt_backend, choices=("pickle", "orbax"),
+                   help="'orbax': asynchronous torch.distributed.checkpoint saves")
     p.add_argument("--device", default=d.device, help="cuda (default) or cpu")
     return p
 

@@ -21,10 +21,15 @@ from align3r_tpu_torch.geometry.core import (closed_form_pose_inverse, geotrf,
                                              normalize_pointcloud, safe_norm)
 
 
-def _masked_mean(x, mask, dim=None):
+def _masked_mean(x, mask, dim=None, reduce=None):
+    """Mean of x over mask. reduce (data parallelism) maps this process's
+    count to the global batch's, so that the ranks' values sum to the global
+    mean."""
     m = mask.to(x.dtype)
     num = (x * m).sum() if dim is None else (x * m).sum(dim=dim)
     den = m.sum() if dim is None else m.sum(dim=dim)
+    if reduce is not None:
+        den = reduce(den)
     return num / torch.clamp(den, min=1.0)
 
 
@@ -71,17 +76,20 @@ def regr3d_pts(gt1: Dict, gt2: Dict, pred1: Dict, pred2: Dict,
 
 
 def conf_regr3d_loss(gt1, gt2, pred1, pred2, alpha: float = 0.2,
-                     norm_mode: str = "avg_dis") -> Tuple[torch.Tensor, Dict]:
+                     norm_mode: str = "avg_dis", reduce=None) -> Tuple[torch.Tensor, Dict]:
     """ConfLoss(Regr3D(L21)), the training criterion (train.sh:6,
-    reference losses.py:242-286). Returns (scalar loss, details)."""
+    reference losses.py:242-286). Returns (scalar loss, details). With
+    `reduce` (a rank's share of a data-parallel batch), each mean divides by
+    the global batch's valid-pixel count: the ranks' losses and gradients sum
+    to the global batch's."""
     gt_pts1, gt_pts2, pr1, pr2, m1, m2 = regr3d_pts(gt1, gt2, pred1, pred2,
                                                     norm_mode)
     d1, d2 = l21(pr1, gt_pts1), l21(pr2, gt_pts2)
     conf1, conf2 = pred1["conf"].float(), pred2["conf"].float()
-    loss1 = _masked_mean(d1 * conf1 - alpha * torch.log(conf1), m1)
-    loss2 = _masked_mean(d2 * conf2 - alpha * torch.log(conf2), m2)
-    details = {"Regr3D_pts3d_1": _masked_mean(d1, m1),
-               "Regr3D_pts3d_2": _masked_mean(d2, m2),
+    loss1 = _masked_mean(d1 * conf1 - alpha * torch.log(conf1), m1, reduce=reduce)
+    loss2 = _masked_mean(d2 * conf2 - alpha * torch.log(conf2), m2, reduce=reduce)
+    details = {"Regr3D_pts3d_1": _masked_mean(d1, m1, reduce=reduce),
+               "Regr3D_pts3d_2": _masked_mean(d2, m2, reduce=reduce),
                "conf_loss_1": loss1, "conf_loss_2": loss2}
     return loss1 + loss2, details
 

@@ -195,9 +195,49 @@ final result line:
                 strict reload of checkpoint-final.pth. Prints ms a micro-step
                 and the share of the epoch the loop waited on the loader
                 beside the card.
+ 14. batch    - the batched multi-scene solve, run after `main`: 4 seeded
+                24-frame 512x288 videos in the main phase's configuration
+                (VIT_L_512, swinstride-5 symmetrised, 190 pairs each), the
+                engine and mst_init on each, then alignment.batched.
+                batched_alignment (mixed, 300 iterations, the main path's
+                flow_forward loss and schedule) with the counters zeroed first:
+                K3 and K4 must launch 300 times for the 4 scenes (240 on the
+                bf16 packs, 60 on the fp32 repacks, one scene-axis launch an
+                iteration), K5 twice. In the same call the 4 sequential
+                global_alignment_loops; each scene's losses must match its
+                sequential solve at rtol 2e-4, atol 1e-5. Prints the batched
+                solve_s beside the sum of the sequential ones, and the card.
+ 15. ddp      - data parallelism on the one card, run after `data`: two
+                ranks over gloo (NCCL refuses two ranks on one device), each
+                `python -m align3r_tpu_torch.tools.train` at the recipe's
+                288x512 (Align3RConfig(img_size=(288, 512)), a seeded start
+                checkpoint, the data phase's dataset expression) with
+                --n_data 2 --zero1 --ckpt_backend orbax, global batch 2,
+                accum_iter 2, 4 micro-steps, then resumed from the
+                asynchronous checkpoint for a second epoch; one process runs
+                the same two epochs on the same global batches (resumed from
+                its pickle checkpoint): epoch 0's loss within rtol 1e-4 (its
+                4 micro-steps see the start weights: the first applied
+                update has learning rate 0), epoch 1's, after an update at
+                learning rate > 0, within 1e-2 (bf16 compute), and the
+                trainable parameters' change over both epochs at cosine
+                >= 0.9 to one process's. Then the
+                data-parallel engine (inference(group=...)) on the main
+                phase's 24 frames over the two ranks, with the pipeline and
+                the default heads: within atol / rtol 1e-5 of one rank's
+                output. Then a
+                pos_embed="cosine" engine at VIT_L_512 widths on the same
+                frames: K1/K2, GEMM and LayerNorm launches as the RoPE
+                engine's, finite outputs. The dp engine's one-rank
+                reference runs the ranks' own batch sizes (cuDNN picks the
+                heads' bf16 conv algorithms by batch size).
 The kernels phase also holds K7 (the four refinenet shapes, with and without
 a base, in bf16 and fp32), K8 (the head tail at the main path's shape, bf16
-and fp32, and at (4, 72, 128, 256) fp32), both timed from a CUDA graph and
+and fp32, and at (4, 72, 128, 256) fp32), K3/K4 with a scene axis (4 scenes of
+the main path's shape laid end to end, bf16 and fp32: against the plain
+versions, each scene's loss within 1e-6 relative of its own S = 1 launch and
+its gradients bit for bit, timed from a CUDA graph beside 4 x the S = 1 bound),
+both timed from a CUDA graph and
 split by launch beside the XLA-path chain (cuDNN, TF32 off; from a CUDA graph
 and launched one by one), and untimed at the main path's last batch of 30
 pairs, and K9
@@ -230,6 +270,9 @@ TAIL_BATCH = 190 % BATCH   # the last decode batch of the main path's 190 pairs
 LN_ROTATE = 4   # inputs the LayerNorm row cycles through: 75-226 MB, past the L2
 TRAIN_PAIRS, TRAIN_BATCH, ACCUM, TRAIN_EPOCHS = 16, 2, 4, 2
 LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
+BATCH_SCENES = 4           # the batch phase's videos (seeds 0-3), solved together
+DDP_RANKS, DDP_STEPS, DDP_ACCUM = 2, 4, 2
+DP_TOL = 1e-5              # the data-parallel engine against one rank, atol and rtol
 DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
 # the data phase: FlyingThings3D (SceneFlow layout) at 960x540, Sintel at
 # 1024x436; 24 + 8 pairs, one epoch of 16 micro-steps
@@ -779,6 +822,83 @@ def check_edge(dev, gen, n=N_FRAMES, pairs=None):
     return rows
 
 
+def check_edge_scenes(dev, gen, S=BATCH_SCENES, n=N_FRAMES, e2=380):
+    """K3/K4 with a scene axis: S scenes of the main path's shape (n images,
+    e2 image-sorted terms, A = 147,456) laid end to end (stack_packs), bf16
+    and fp32 storage. Against the plain versions (relative 1e-4 of the
+    largest value); each scene's loss within 1e-6 relative of its own S = 1
+    launch and its dproj and dM bit for bit (the same walk); two launches
+    give the same bits. Timed from a CUDA graph beside S x the S = 1 bound."""
+    import torch
+    from align3r_tpu_torch.ops import edge_loss as el
+    A = H * W
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        proj = torch.randn(S, n, 3, A, generator=gen, device=dev)
+        pred = torch.randn(S, e2, 3, A, generator=gen, device=dev).to(dt)
+        w = (torch.rand(S, e2, A, generator=gen, device=dev) / (e2 * A)).to(dt)
+        idx = torch.sort(torch.randint(0, n, (S, e2), generator=gen, device=dev,
+                                       dtype=torch.int32), dim=1).values
+        pw34 = (torch.eye(3, 4, device=dev)[None, None]
+                + 0.1 * torch.randn(S, e2, 3, 4, generator=gen, device=dev)).contiguous()
+        csr = [el.term_csr(idx[z], n) for z in range(S)]
+        order = torch.stack([c[0] for c in csr]).to(dev)
+        offsets = torch.stack([c[1] for c in csr]).to(dev)
+        fi, fo, ff = el.stack_packs(idx, order, offsets, n)
+        flat = [t.reshape(-1, *t.shape[2:]) for t in (proj, pw34, pred, w)]
+        one = lambda z: (proj[z], pw34[z], pred[z], w[z], idx[z], order[z], offsets[z])
+        g = torch.tensor([1.5, 0.5, 2.0, 1.0][:S], device=dev)
+        kf = lambda: el.edge_loss_fwd(*flat, fi, fo, ff, scenes=S)
+        kb = lambda: el.edge_loss_bwd(g, *flat, fi, fo, ff, scenes=S)
+        pf = lambda: el.edge_loss_fwd_plain(*flat, fi, scenes=S)
+        pb = lambda: el.edge_loss_bwd_plain(g, *flat, fi, scenes=S)
+        lk, (dpk, dmk) = kf(), kb()
+        lk2, (dpk2, dmk2) = kf(), kb()
+        lp = pf()
+        torch.cuda.synchronize()
+        same_f = torch.equal(lk, lk2)
+        same_b = torch.equal(dpk, dpk2) and torch.equal(dmk, dmk2)
+        ones = [el.edge_loss_fwd(*one(z)) for z in range(S)]
+        own = max(abs(lk[z].item() - ones[z].item()) / abs(ones[z].item()) for z in range(S))
+        bits_b = all(torch.equal(dpk[z * n:(z + 1) * n], d1) and torch.equal(
+            dmk[z * e2:(z + 1) * e2], m1) for z in range(S)
+            for d1, m1 in [el.edge_loss_bwd(g[z], *one(z))])
+        tag = "bf16" if dt == torch.bfloat16 else "fp32"
+        isz = 2 if dt == torch.bfloat16 else 4
+        fwd_bytes = (n * 3 * A * 4 + e2 * 48 + e2 * 3 * A * isz + e2 * A * isz + e2 * 4
+                     + (n + 1) * 4)
+        ef = max_err(lk, lp)
+        b_ms, b_by = bound(S * (fwd_bytes + 4), S * 30 * e2 * A, PEAK_FP32)
+        shape = f"{tag} S={S} n={S}x{n} e2={S}x{e2} A={A}, image-sorted"
+        rows.append(ratios(dict(
+            kernel="K3 scenes", shape=shape, max_abs_err=ef[0], max_rel_err=ef[1],
+            tol=f"1e-4 x max; each scene 1e-6 of its S = 1 launch ({own:.3g})",
+            same_bits=same_f, own_launch_rel_err=own,
+            ok=ef[0] <= 1e-4 * ef[2] and own <= 1e-6 and same_f,
+            ms=graph_time(kf, 20), ms_eager=cuda_time(kf, 20),
+            split_ms=kernel_split(kf, 10, "edge_fwd"), plain_ms=cuda_time(pf, 3),
+            bound_ms=b_ms, bound_by=b_by)))
+        del lp
+        (dpp, dmp) = pb()
+        e1, e2m = max_err(dpk, dpp), max_err(dmk, dmp)
+        del dpp, dmp
+        b_ms, b_by = bound(S * (fwd_bytes + 4 + n * 3 * A * 4 + e2 * 48), S * 60 * e2 * A,
+                           PEAK_FP32)
+        rows.append(ratios(dict(
+            kernel="K4 scenes", shape=shape, max_abs_err=max(e1[0], e2m[0]),
+            max_rel_err=max(e1[1], e2m[1]),
+            tol=f"1e-4 x max (dproj {1e-4 * e1[2]:.3g}, dM {1e-4 * e2m[2]:.3g}); each "
+                "scene's bits of its S = 1 launch",
+            same_bits=same_b, own_launch_bits=bits_b,
+            ok=e1[0] <= 1e-4 * e1[2] and e2m[0] <= 1e-4 * e2m[2] and same_b and bits_b,
+            ms=graph_time(kb, 20), ms_eager=cuda_time(kb, 20),
+            split_ms=kernel_split(kb, 10, "edge_bwd"), plain_ms=cuda_time(pb, 3),
+            bound_ms=b_ms, bound_by=b_by)))
+        del proj, pred, w, flat, dpk, dpk2
+        torch.cuda.empty_cache()
+    return rows
+
+
 def check_k5(dev, gen, n=N_FRAMES, graph="swinstride-5-noncyclic", timed=True):
     """K5 against its plain version, bf16 and fp32, on the image-sorted perm
     of `graph` over `n` frames: at 24 frames of the swinstride-5 graph (E =
@@ -1294,6 +1414,336 @@ def main_path(dev):
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"main: warm run {json.dumps(rates)}", flush=True)
     return launches, rates, pm, pm32, imgs, priors
+
+
+MAIN_SCENE_KW = dict(shared_focal=True, temporal_smoothing_weight=0.01,
+                     translation_weight=1.0, flow_loss_weight=0.0,
+                     flow_loss_start_epoch=0.1, flow_loss_thre=25, min_conf_thr=1.1)
+
+
+def batch_path(dev, pm, card):
+    """The batched multi-scene solve (see the module docstring)."""
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.alignment.batched import batched_alignment
+    from align3r_tpu_torch.alignment.flow import flow_forward
+    from align3r_tpu_torch.alignment.init_poses import mst_init
+    from align3r_tpu_torch.alignment.scene import (build_scene, default_masks,
+                                                   global_alignment_loop)
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.ops import edge_loss as el
+
+    phase_t0 = time.perf_counter()
+    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    kw = dict(MAIN_SCENE_KW, num_total_iter=300)
+    solve = dict(lr=0.01, niter=300, schedule="linear", loss_fn=flow_forward)
+    scenes = []
+    t0 = time.perf_counter()
+    for seed in range(BATCH_SCENES):
+        imgs, priors = synthetic_video(seed)
+        out = inference(pairs, pm, imgs, priors, batch_size=BATCH)
+        cfg, data, params = build_scene(out, cfg_kw=kw)
+        params = mst_init(params, data, cfg, out["pred1"]["conf"], out["pred2"]["conf"])
+        scenes.append((cfg, data, params, default_masks(cfg, params)))
+        del out
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    counters = (el.edge_loss_fwd, el.edge_loss_bwd, el.permute_packed)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    solved, losses = batched_alignment([s[2] for s in scenes], [s[3] for s in scenes],
+                                       [s[1] for s in scenes], scenes[0][0], **solve)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    seq_s, errs, finite = [], [], bool(np.isfinite(losses).all())
+    for z, (cfg, data, params, masks) in enumerate(scenes):
+        t0 = time.perf_counter()
+        p, l_seq = global_alignment_loop(params, masks, data, cfg, **solve)
+        torch.cuda.synchronize()
+        seq_s.append(time.perf_counter() - t0)
+        l_seq = l_seq.cpu().numpy()
+        errs.append(float(np.max(np.abs(losses[z] - l_seq) / (1e-5 + 2e-4 * np.abs(l_seq)))))
+        finite = finite and all(bool(torch.isfinite(v).all()) for v in solved[z].values())
+    checks = {"losses_shape": losses.shape == (BATCH_SCENES, 300), "finite": finite,
+              "k3_k4_300_for_all_scenes": launches["edge_loss_fwd"] == 300
+              and launches["edge_loss_bwd"] == 300,
+              "k5_two_packs": launches["permute_packed"] == 2,
+              "match_sequential": max(errs) <= 1.0}
+    stats = {"batched_solve_s": batched_s, "sequential_solve_s": seq_s,
+             "sequential_solve_s_sum": sum(seq_s),
+             "batched_it_per_s": 300 / batched_s, "engine_and_init_s": prep_s,
+             "max_err_over_tol": max(errs), "launches": launches,
+             "loss_first": losses[:, 0].tolist(), "loss_last": losses[:, -1].tolist(),
+             "phase_s": time.perf_counter() - phase_t0, "card": card}
+    print(f"batch: {BATCH_SCENES} scenes solved together in {batched_s:.3f} s, "
+          f"one by one in {sum(seq_s):.3f} s ({', '.join(f'{x:.3f}' for x in seq_s)}); "
+          f"{card}", flush=True)
+    print(f"batch: checks {json.dumps(checks)}", flush=True)
+    print(f"batch: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"batch path checks failed: {checks}")
+    return launches, stats
+
+
+def seeded_vit_l(dev, cfg=None):
+    """The main phase's network: VIT_L_512 (or `cfg`) from seed 0, zero convs
+    filled from seed 1, the final head convs scaled by 0.01; prepared bf16."""
+    import torch
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.config import VIT_L_512
+    with torch.device(dev):
+        model = Align3R(cfg or VIT_L_512)
+    init_align3r_(model, seed=0)
+    with torch.no_grad():
+        gz = torch.Generator(device=dev).manual_seed(1)
+        for z in model.zero_convs:
+            z[0].weight.copy_(torch.randn(z[0].weight.shape, generator=gz, device=dev) * 0.02)
+        for h in (model.downstream_head1, model.downstream_head2):
+            h.dpt.head[4].weight.mul_(0.01)
+    return model.prepare(torch.bfloat16, torch.bfloat16, device=dev)
+
+
+def dp_engine_rank() -> int:
+    """One rank of the ddp phase's data-parallel engine (chip_smoke.py
+    --dp-engine-rank, ALIGN3R_* variables set): inference(group=WORLD) on the
+    main phase's frames (batch 32, encode chunk 16), pipeline heads and the
+    default heads; rank 0 then runs one rank alone and prints DP_ENGINE
+    {json} with the differences. The one-rank reference runs the ranks' own
+    batches (16 pairs, chunks of 8: the same kernels on the same inputs;
+    cuDNN picks the heads' bf16 conv algorithms by batch size); its
+    difference from one rank at batch 32 is printed beside it."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.parallel.mesh import maybe_init_distributed, rank
+
+    assert maybe_init_distributed()
+    dev = torch.device("cuda", 0)
+    pm = seeded_vit_l(dev)
+    imgs, priors = synthetic_video(0)
+    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    out = {}
+    for impl in ("pipeline", "xla"):
+        fs.attention_site.launches = fs.mlp_site.launches = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = inference(pairs, pm, imgs, priors, batch_size=BATCH, encode_chunk=16,
+                        head_conv_impl=impl, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        out[impl] = {"s": time.perf_counter() - t0, "res": res,
+                     "k1": fs.attention_site.launches, "k2": fs.mlp_site.launches}
+    dist.barrier()
+    if rank() == 0:
+        def diff(got, ref):
+            """max |got - ref|, and whether |got - ref| <= DP_TOL (1 + |ref|)."""
+            d, ok = {}, True
+            for k in ("pred1", "pred2"):
+                for v, r in ref[k].items():
+                    g = got[k][v]
+                    d[f"{k}.{v}"] = (g - r).abs().max().item()
+                    ok = ok and ((g - r).abs() <= DP_TOL * (1 + r.abs())).all().item() \
+                        and bool(torch.isfinite(g).all())
+            return d, ok
+        stats = {}
+        for impl, o in out.items():
+            t0 = time.perf_counter()
+            one = inference(pairs, pm, imgs, priors, batch_size=BATCH // 2, encode_chunk=8,
+                            head_conv_impl=impl)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            d, ok = diff(o["res"], one)
+            d32, _ = diff(o["res"], inference(pairs, pm, imgs, priors, batch_size=BATCH,
+                                              encode_chunk=16, head_conv_impl=impl))
+            stats[impl] = {"max_abs_diff": d, "within_tol": ok,
+                           "max_abs_diff_one_rank_batch_32": d32, "dp_s": o["s"],
+                           "one_rank_s": one_s, "k1_launches_rank0": o["k1"],
+                           "k2_launches_rank0": o["k2"]}
+        print("DP_ENGINE " + json.dumps(stats), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _launch_ranks(argv, log_dir, tag, timeout=600):
+    """DDP_RANKS processes of argv on the one card (tcp:// on localhost;
+    more ranks than cards, so maybe_init_distributed picks gloo); their
+    outputs are kept under log_dir. Fails on a non-zero exit."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ, ALIGN3R_COORDINATOR=f"localhost:{port}",
+               ALIGN3R_NUM_PROCESSES=str(DDP_RANKS), PYTHONPATH=HERE)
+    logs = [os.path.join(log_dir, f"{tag}.rank{r}.log") for r in range(DDP_RANKS)]
+    procs = []
+    for r in range(DDP_RANKS):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(argv, cwd=HERE, stdout=f, stderr=subprocess.STDOUT,
+                                          env=dict(env, ALIGN3R_PROCESS_ID=str(r))))
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [open(f).read() for f in logs]
+    if any(rcs):
+        raise AssertionError(f"{tag}: ranks exited {rcs}:\n" + "\n".join(
+            o[-3000:] for o in outs))
+    return outs
+
+
+def ddp_path(dev, card):
+    """Data-parallel training and serving, and the cosine engine (see the
+    module docstring)."""
+    import dataclasses
+    import math
+    import shutil
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.models.config import VIT_L_512, Align3RConfig
+    from align3r_tpu_torch.ops import fused_site as fs
+    from align3r_tpu_torch.tools import train as cli
+    from align3r_tpu_torch.training import step as ts
+    from align3r_tpu_torch.training.train import export_torch_checkpoint
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "ddp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    stats, checks = {"card": card}, {}
+    # the start checkpoint, as run_train makes it
+    with torch.device(dev):
+        start = init_align3r_(Align3R(Align3RConfig(img_size=(H, W))), seed=0)
+    with torch.no_grad():
+        for h in (start.downstream_head1, start.downstream_head2):
+            h.dpt.head[4].weight.mul_(0.01)
+    pretrained = os.path.join(root, "start.pth")
+    export_torch_checkpoint(pretrained, start)
+    del start
+    torch.cuda.empty_cache()
+    train_expr, _ = data_exprs(os.path.join(HERE, "build", "data", "sceneflow"),
+                               os.path.join(HERE, "build", "data", "sintel",
+                                            "MPI-Sintel-training_images", "training", "final"))
+
+    def argv(out, epochs, *extra):
+        return ["--model", f"Align3RConfig(img_size={(H, W)})", "--pretrained", pretrained,
+                "--train_dataset", train_expr, "--batch_size", str(DDP_RANKS),
+                "--accum_iter", str(DDP_ACCUM), "--epochs", str(epochs),
+                "--warmup_epochs", "0", "--num_workers", "2", "--output_dir", out,
+                "--max_steps_per_epoch", str(DDP_STEPS), "--print_freq", "1",
+                "--keep_freq", str(10 ** 6), *extra]
+
+    def log(out):
+        with open(os.path.join(out, "log.txt")) as f:
+            return [json.loads(line) for line in f]
+
+    dp_out = os.path.join(root, "ranks")
+    cmd = [sys.executable, "-m", "align3r_tpu_torch.tools.train"]
+    t0 = time.perf_counter()
+    outs_first = _launch_ranks(cmd + argv(dp_out, 1, "--n_data", str(DDP_RANKS), "--zero1",
+                                          "--ckpt_backend", "orbax"), root, "train")
+    stats["ddp_epoch_s"] = time.perf_counter() - t0
+    print("ddp: rank 0's run\n" + "\n".join(outs_first[0].splitlines()[-12:]), flush=True)
+    last = os.path.join(dp_out, "checkpoint-last")
+    checks["async_checkpoint_committed"] = (os.path.exists(os.path.join(last, "meta.json"))
+                                            and os.path.isdir(os.path.join(last, "dcp")))
+    t0 = time.perf_counter()
+    outs = _launch_ranks(cmd + argv(dp_out, 2, "--n_data", str(DDP_RANKS), "--zero1",
+                                    "--ckpt_backend", "orbax"), root, "resume")
+    stats["ddp_resumed_epoch_s"] = time.perf_counter() - t0
+    dp_log = log(dp_out)
+    checks["resumed"] = ("resumed from" in outs[0] and [r["epoch"] for r in dp_log] == [0, 1]
+                         and all(math.isfinite(r["train_loss"]) for r in dp_log))
+    # one process on the same global batches, resumed the same way (pickle)
+    one_out = os.path.join(root, "one")
+    for epochs, key in ((1, "one_process_epoch_s"), (2, "one_process_resumed_epoch_s")):
+        t0 = time.perf_counter()
+        cli.main(argv(one_out, epochs, "--device", str(dev)))
+        torch.cuda.synchronize()
+        stats[key] = time.perf_counter() - t0
+    one_log = log(one_out)
+    checks["one_process_resumed"] = [r["epoch"] for r in one_log] == [0, 1]
+    # epoch 0 sees the start weights; epoch 1 the weights after an update at
+    # learning rate > 0 (bf16 compute: parameters one ulp apart round some
+    # activations the other way, so 1e-2, as the CPU test holds it)
+    for e, tol in ((0, 1e-4), (1, 1e-2)):
+        a, b = dp_log[e]["train_loss"], one_log[e]["train_loss"]
+        stats[f"loss_two_ranks_epoch{e}"], stats[f"loss_one_process_epoch{e}"] = a, b
+        stats[f"loss_rel_diff_epoch{e}"] = abs(a - b) / abs(b)
+        checks[f"loss_matches_one_process_epoch{e}"] = abs(a - b) <= tol * abs(b)
+    # the trainable parameters' change over both epochs against one process's
+    # (Adam normalises each element's step, so a missing sum over the ranks or
+    # a wrong ZeRO-1 reassembly turns the direction, not only the length)
+    p0 = torch.load(pretrained, map_location="cpu")["model"]
+    fin = [torch.load(os.path.join(o, "checkpoint-final.pth"), map_location="cpu")["model"]
+           for o in (dp_out, one_out)]
+    names = [n for n in p0 if ts.is_trainable(n)]
+    u_dp, u_one = (torch.cat([(f[n].double() - p0[n].double()).ravel() for n in names])
+                   for f in fin)
+    stats["update_cosine"] = float(torch.nn.functional.cosine_similarity(u_dp, u_one, dim=0))
+    stats["update_rel_diff"] = float((u_dp - u_one).norm() / u_one.norm())
+    checks["update_matches_one_process"] = (stats["update_cosine"] >= 0.9
+                                            and float(u_one.norm()) > 0)
+    print(f"ddp: two ranks (gloo, zero1, async checkpoints) epoch losses "
+          f"{stats['loss_two_ranks_epoch0']:.7g}, {stats['loss_two_ranks_epoch1']:.7g}; one "
+          f"process {stats['loss_one_process_epoch0']:.7g}, "
+          f"{stats['loss_one_process_epoch1']:.7g} (rel {stats['loss_rel_diff_epoch0']:.2e}, "
+          f"{stats['loss_rel_diff_epoch1']:.2e}); parameter change cosine "
+          f"{stats['update_cosine']:.6f}, rel diff {stats['update_rel_diff']:.3e}; "
+          f"{stats['ddp_epoch_s']:.1f} s and {stats['one_process_epoch_s']:.1f} s for "
+          f"{DDP_STEPS} micro-steps with start-up; {card}", flush=True)
+
+    # the data-parallel engine over the two ranks
+    outs = _launch_ranks([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                          "--dp-engine-rank"], root, "engine")
+    line = next(ln for ln in outs[0].splitlines() if ln.startswith("DP_ENGINE "))
+    stats["dp_engine"] = json.loads(line[len("DP_ENGINE "):])
+    checks["dp_engine_within_tol"] = all(v["within_tol"] for v in stats["dp_engine"].values())
+    print(f"ddp: data-parallel engine against one rank {json.dumps(stats['dp_engine'])}",
+          flush=True)
+
+    # pos_embed="cosine" at VIT_L_512 widths beside the RoPE engine
+    imgs, priors = synthetic_video(0)
+    pairs = make_pairs(N_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    counts, res = {}, {}
+    for tag, cfg in (("rope", VIT_L_512), ("cosine", dataclasses.replace(
+            VIT_L_512, pos_embed="cosine"))):
+        pm = seeded_vit_l(dev, cfg)
+        counters = (fs.attention_site, fs.mlp_site, fs.gemm, fs._ln_cuda)
+        for c in counters:
+            c.launches = 0
+        out = inference(pairs, pm, imgs, priors, batch_size=BATCH)
+        torch.cuda.synchronize()
+        counts[tag] = {c.__name__: c.launches for c in counters}
+        res[tag] = out["pred1"]["pts3d"]
+        checks[f"{tag}_finite"] = all(bool(torch.isfinite(v).all()) for k in ("pred1", "pred2")
+                                      for v in out[k].values())
+        del pm, out
+        torch.cuda.empty_cache()
+    checks["cosine_launches_as_rope"] = counts["cosine"] == counts["rope"] and all(
+        counts["cosine"].values())
+    stats["cosine_vs_rope_median_rel"] = float(
+        ((res["cosine"] - res["rope"]).abs() / (res["rope"].abs() + 1e-3)).median())
+    checks["cosine_differs"] = stats["cosine_vs_rope_median_rel"] > 0
+    stats["engine_launches"] = counts
+    stats["phase_s"] = time.perf_counter() - phase_t0
+    print(f"ddp: checks {json.dumps(checks)}", flush=True)
+    print(f"ddp: stats {json.dumps(stats)}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"ddp path checks failed: {checks}")
+    return counts["cosine"], stats
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2066,6 +2516,7 @@ def demo_path(dev, card):
     from align3r_tpu_torch.inference.images import load_images, stack_views
     from align3r_tpu_torch.pipeline import reconstruct_scene
     from align3r_tpu_torch.tools import demo
+    from align3r_tpu_torch.training import step as ts
     from align3r_tpu_torch.training.train import export_torch_checkpoint
 
     phase_t0 = time.perf_counter()
@@ -2649,7 +3100,7 @@ def main() -> int:
         rows = (check_sites(dev, gen) + check_gemms(dev, gen) + check_edge(dev, gen)
                 + [r for n, g in DEMO_GRAPHS for r in check_edge(
                     dev, gen, n, make_pairs(n, g, symmetrize=True))]
-                + check_k5(dev, gen)
+                + check_edge_scenes(dev, gen) + check_k5(dev, gen)
                 + [r for n, g in DEMO_GRAPHS for r in check_k5(dev, gen, n, g, timed=False)]
                 + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen)
                 + check_sam2_attention(dev, gen))
@@ -2666,6 +3117,10 @@ def main() -> int:
 
         phase = "main"
         launches, rates, pm, pm32, imgs, priors = main_path(dev)
+        torch.cuda.empty_cache()
+
+        phase = "batch"
+        batch_launches, batch_stats = batch_path(dev, pm, card)
         torch.cuda.empty_cache()
 
         phase = "sam2"
@@ -2712,6 +3167,10 @@ def main() -> int:
         data_launches, data_stats = data_path(dev, card, train_launches, train_stats)
         torch.cuda.empty_cache()
 
+        phase = "ddp"
+        cosine_launches, ddp_stats = ddp_path(dev, card)
+        torch.cuda.empty_cache()
+
         phase = "long"
         print("long: K9 gradient " + json.dumps(check_k9_grad(dev, gen)), flush=True)
         torch.cuda.empty_cache()
@@ -2742,6 +3201,10 @@ def main() -> int:
         "K2": ("mlp_site", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:242"),
         "K3": ("edge_loss_fwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:172"),
         "K4": ("edge_loss_bwd", src + "edge_loss.cu", "align3r_tpu/ops/edge_loss.py:207"),
+        "K3 scenes": ("edge_loss_fwd", src + "edge_loss.cu",
+                      "align3r_tpu/ops/edge_loss.py:172"),
+        "K4 scenes": ("edge_loss_bwd", src + "edge_loss.cu",
+                      "align3r_tpu/ops/edge_loss.py:207"),
         "K5": ("permute_packed", src + "permute_packed.cu", "align3r_tpu/ops/edge_loss.py:417"),
         "K6": ("small_attention", src + "small_attention.cu",
                "align3r_tpu/ops/small_attention.py:47"),
@@ -2765,6 +3228,7 @@ def main() -> int:
     }
     # the path(s) each kernel's launches were counted on
     paths = {"K5": {"flow": flow_launches},
+             "K3 scenes": {"batch": batch_launches}, "K4 scenes": {"batch": batch_launches},
              "K6": {"train": train_launches, "data": data_launches},
              "K7": {"heads": heads_launches}, "K7 fp32": {"heads": heads_launches},
              "K8": {"heads": heads_launches}, "K8 fp32": {"heads": heads_launches},
@@ -2793,7 +3257,8 @@ def main() -> int:
                             "ms_over_k6", "bits_of_k6", "bound_over_ms", "products_run",
                             "products_bound", "xla_chain_ms", "xla_chain_ms_eager", "split_ms",
                             "bound_ms", "bound_by",
-                            "max_abs_err", "tiles", "rounds", "tflops")}
+                            "max_abs_err", "tiles", "rounds", "tflops",
+                            "own_launch_rel_err", "own_launch_bits")}
                                    for r in mine]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "main_path": rates, "flow_path": flow_stats,
@@ -2801,7 +3266,8 @@ def main() -> int:
                       "train_path": train_stats, "data_path": data_stats,
                       "heads_path": heads_stats,
                       "demo_path": demo_stats, "prior_path": prior_stats,
-                      "long_path": long_stats}), flush=True)
+                      "long_path": long_stats, "batch_path": batch_stats,
+                      "ddp_path": ddp_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2809,4 +3275,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--dp-engine-rank"]:
+        sys.exit(dp_engine_rank())
     sys.exit(main())

@@ -11,7 +11,10 @@ edges: token counts that are not a multiple of the 64-row attention tile or
 the 128-row GEMM tile, pixel counts that are not a multiple of the 1024-pixel
 edge-loss tile or whose rows are not 16-byte aligned (odd A), an image with
 no edge terms, terms sorted by image and unsorted, a walk longer than K4's
-dM slots, and two launches of K3/K4 that give the same bits; for K6, query and key
+dM slots, and two launches of K3/K4 that give the same bits, K3/K4 with a
+scene axis (1 and 3 scenes laid end to end: each scene's loss within 1e-6
+of its own launch, its gradients bit for bit) and EdgeLoss under
+torch.func.vmap making one launch of each; for K6, query and key
 counts that are not multiples of the 64-row tiles, Nq != Nk, and head dims
 padded with zeros (8, 40, 128), one key (the P V product alone) and one key
 tile against V = I (the first product alone); for K9, sequence lengths that
@@ -314,6 +317,71 @@ def test_edge_loss_long_walk(dev):
     rdp, rdm = el.edge_loss_bwd_plain(gval, proj, pw34, pred, w, idx_t)
     for got, want in ((dp, rdp), (dm, rdm)):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _scene_axis_case(dev, dtype, S, A, n=5, e2=23):
+    """S scenes of _edge_case (each its own seed; image 2 of every scene has
+    no terms), stacked: per-scene (S, ...) inputs and their scene-axis
+    layout (stack_packs)."""
+    cases = [_edge_case(dev, dtype, A, sort=z % 2 == 0, n=n, e2=e2, seed=10 + z)
+             for z in range(S)]
+    st = [torch.stack(t) for t in zip(*cases)]
+    idx, order, offsets = el.stack_packs(st[4], st[5], st[6], n)
+    flat = [t.reshape(-1, *t.shape[2:]) for t in st[:4]]
+    return cases, flat + [idx, order, offsets]
+
+
+@pytest.mark.parametrize("A", [5000, 1001])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 3])
+def test_edge_loss_scene_axis(dev, dtype, S, A):
+    """K3/K4 with a scene axis: S scenes laid end to end give S losses, each
+    its scene's plain loss (1e-4) and its own S = 1 launch (1e-6 relative;
+    the same walk and partials), and K4 with one upstream gradient a scene
+    gives each scene's S = 1 gradients; two launches give the same bits."""
+    cases, (proj, pw34, pred, w, idx, order, offsets) = _scene_axis_case(dev, dtype, S, A)
+    loss = el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets, scenes=S)
+    ref = el.edge_loss_fwd_plain(proj, pw34, pred, w, idx, scenes=S)
+    assert loss.shape == (S,)
+    gval = torch.arange(1, S + 1, dtype=torch.float32, device=dev) * 0.7
+    dp, dm = el.edge_loss_bwd(gval, proj, pw34, pred, w, idx, order, offsets, scenes=S)
+    rdp, rdm = el.edge_loss_bwd_plain(gval, proj, pw34, pred, w, idx, scenes=S)
+    for got, want in ((dp, rdp), (dm, rdm)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    n, e2 = cases[0][0].shape[0], cases[0][1].shape[0]
+    for z, case in enumerate(cases):
+        assert abs(loss[z].item() - ref[z].item()) <= 1e-4 * abs(ref[z].item())
+        one = el.edge_loss_fwd(*case)
+        assert abs(loss[z].item() - one.item()) <= 1e-6 * abs(one.item())
+        dp1, dm1 = el.edge_loss_bwd(gval[z], *case)
+        assert torch.equal(dp[z * n:(z + 1) * n], dp1)
+        assert torch.equal(dm[z * e2:(z + 1) * e2], dm1)
+        assert (dp[z * n + 2] == 0).all()
+    assert torch.equal(el.edge_loss_fwd(proj, pw34, pred, w, idx, order, offsets, scenes=S),
+                       loss)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_edge_loss_vmap_is_one_scene_axis_launch(dev, dtype):
+    """EdgeLoss under torch.func.vmap over 3 scenes launches K3 and K4 once
+    each, and its losses and gradients are each scene's own (1e-6 relative
+    loss; gradients 1e-5 of the largest value)."""
+    cases, _ = _scene_axis_case(dev, dtype, 3, 5000)
+    st = [torch.stack(t) for t in zip(*cases)]
+    proj = st[0].clone().requires_grad_(True)
+    pw34 = st[1].clone().requires_grad_(True)
+    before = (el.edge_loss_fwd.launches, el.edge_loss_bwd.launches)
+    loss = torch.func.vmap(el.edge_loss)(proj, pw34, *st[2:])
+    gp, gm = torch.autograd.grad(loss.sum(), [proj, pw34])
+    assert (el.edge_loss_fwd.launches - before[0], el.edge_loss_bwd.launches - before[1]) == (1, 1)
+    for z, case in enumerate(cases):
+        p1 = case[0].clone().requires_grad_(True)
+        m1 = case[1].clone().requires_grad_(True)
+        l1 = el.edge_loss(p1, m1, *case[2:])
+        a, b = torch.autograd.grad(l1, [p1, m1])
+        assert abs(loss[z].item() - l1.item()) <= 1e-6 * abs(l1.item())
+        for got, want in ((gp[z], a), (gm[z], b)):
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def test_edge_loss_refuses_unsupported(dev):

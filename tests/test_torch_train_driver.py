@@ -147,9 +147,12 @@ def test_jax_export_loads_strictly(tmp_path, jax_export):
 
 
 def test_train_refuses_what_is_not_ported(tmp_path):
-    for kw in (dict(ckpt_backend="orbax"), dict(zero1=True), dict(n_data=2)):
-        with pytest.raises(NotImplementedError):
-            train(_args(tmp_path, **kw))
+    # n_data must equal the world size (one process here), and the backend
+    # must be one of the two; zero1 and "orbax" run (test_torch_parallel.py)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        train(_args(tmp_path, n_data=2))
+    with pytest.raises(ValueError, match="ckpt_backend"):
+        train(_args(tmp_path, ckpt_backend="npz"))
     # dataset strings are ported: build_dataset evaluates them against the
     # registry alone (test_torch_data.py holds the datasets to JAX's)
     with pytest.raises(TypeError, match="ROOT"):
