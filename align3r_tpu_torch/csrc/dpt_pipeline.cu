@@ -162,6 +162,7 @@ struct ConvPolicy {
     sm90::tma_load(sa + GemmSmem::AB + GBK * 128, tw, bar, t.n0 + 64, kt * GBK, 0);
   }
   __device__ __forceinline__ const float* bias(const Tile& t) const { return p.bias + t.n0; }
+  __device__ __forceinline__ uint32_t bias_bytes(const Tile&) const { return GBN * 4; }
   __device__ __forceinline__ Rows rows(const Tile& t, int, int) const { return t; }
 
   // chunk (hm, h) of the epilogue (EPI_RESID's residual adds come after it,

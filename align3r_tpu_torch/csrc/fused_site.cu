@@ -19,6 +19,17 @@
 // and an MLP site is layernorm -> gemm_sm90<EPI_BIAS_GELU> ->
 // gemm_sm90<EPI_BIAS_RESID | EPI_BIAS>.
 //
+// Tensor parallelism (replaces no TPU kernel: JAX's tp path partitions XLA's
+// einsums instead, align3r_tpu/inference/engine.py:210-261): on a rank of a
+// model group of m, a site runs the same launches on its H / m heads or F / m
+// hidden units (q/k/v and fc1 N = C / m or F / m wide, a 64-wide last tile
+// where that is an odd multiple of 64), ends in gemm_sm90<EPI_PARTIAL> (the
+// fp32 product of depth C / m or F / m, no bias), and after the all-reduce
+// over the group, finish_kernel writes bf16(resid + bf16(sum + bias)) or
+// bf16(sum + bias): EPI_BIAS_RESID's and EPI_BIAS's function up to the order
+// of the fp32 sums. It is bytes-bound (12 bytes an element with the
+// residual) and moves 16 bytes a thread-load.
+//
 // GELU uses erff (CUDA's erf, max error 2 ulp); the TPU kernel used the
 // Abramowitz-Stegun polynomial (fused_site.py:224-239, |err| < 1.5e-7), so
 // the two differ by at most about 1.5e-7 before rounding to bf16.
@@ -167,6 +178,40 @@ cudaError_t launch_layernorm(const bf16* x, const float* scale, const float* bia
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------- finishing
+
+constexpr int FIN_THREADS = 256;
+
+// y = bf16(resid + bf16(s + bias)), or bf16(s + bias) without resid, on
+// (rows, N), row r taking stream r / rows_per_g's bias; 8 elements a thread
+// and step (two 16-byte fp32 loads, one 16-byte bf16 load and store).
+__global__ void __launch_bounds__(FIN_THREADS)
+finish_kernel(const float* __restrict__ s, const float* __restrict__ bias,
+              const bf16* __restrict__ resid, bf16* __restrict__ y, long long rows_per_g,
+              long long n8, int N) {
+  for (long long i = (long long)blockIdx.x * FIN_THREADS + threadIdx.x; i < n8;
+       i += (long long)gridDim.x * FIN_THREADS) {
+    const long long e = 8 * i, row = e / N;
+    const int col = (int)(e - row * N);
+    const float* b = bias + (row / rows_per_g) * N + col;
+    const float4 s0 = *reinterpret_cast<const float4*>(s + e);
+    const float4 s1 = *reinterpret_cast<const float4*>(s + e + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
+    float t[8] = {s0.x + b0.x, s0.y + b0.y, s0.z + b0.z, s0.w + b0.w,
+                  s1.x + b1.x, s1.y + b1.y, s1.z + b1.z, s1.w + b1.w};
+    if (resid != nullptr) {
+      float r[8];
+      unpack8(*reinterpret_cast<const uint4*>(resid + e), r);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) t[k] = r[k] + bf16r(t[k]);
+    }
+    *reinterpret_cast<uint4*>(y + e) =
+        make_uint4(sm90::pack_bf16(t[0], t[1]), sm90::pack_bf16(t[2], t[3]),
+                   sm90::pack_bf16(t[4], t[5]), sm90::pack_bf16(t[6], t[7]));
+  }
+}
+
 // ------------------------------------------------------------- attention
 
 constexpr int AK = 64;   // keys per tile: K6's SK, so the two give the same bits
@@ -210,29 +255,56 @@ A3R_EXPORT int a3r_layernorm(const void* x, const void* scale, const void* bias,
 // C (G, M, N) = epilogue(A (G, M, K) @ W (G, K, N)) on gemm.cuh's core, all
 // bf16, contiguous and 16-byte aligned; bias (G, N) fp32, 16-byte aligned (a
 // bulk copy brings each tile's slice); resid like C (EPI_BIAS_RESID); cos,
-// sin (rope_n, 64) bf16 (EPI_BIAS_ROPE, rope_d = 64). K % 64 == 0 and
-// N % 128 == 0; any M >= 1.
+// sin (rope_n, 64) bf16 (EPI_BIAS_ROPE, rope_d = 64). EPI_PARTIAL: C fp32,
+// no bias (may be null). K % 64 == 0; N % 64 == 0 for EPI_BIAS, EPI_BIAS_ROPE
+// and EPI_PARTIAL (their TAIL instances), N % 128 == 0 for the others; any
+// M >= 1.
 A3R_EXPORT int a3r_gemm(const void* A, const void* W, const void* bias,
                         const void* resid, void* C, const void* cos,
                         const void* sin, int G, int M, int N, int K, int epi,
                         int rope_d, int rope_n, void* stream) {
-  if (G < 1 || M < 1 || K < GBK || K % GBK || N < GBN || N % GBN || bias == nullptr ||
-      (uintptr_t)bias % 16 || (long long)G * ((M + GBM - 1) / GBM) * (N / GBN) > 0x7fffffffLL)
+  const bool tail = N % GBN != 0;
+  if (G < 1 || M < 1 || K < GBK || K % GBK || N < GBN_TAIL || N % GBN_TAIL ||
+      (tail && epi != EPI_BIAS && epi != EPI_BIAS_ROPE && epi != EPI_PARTIAL) ||
+      (epi != EPI_PARTIAL && bias == nullptr) || (uintptr_t)bias % 16 ||
+      (long long)G * ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (epi == EPI_BIAS_ROPE &&
       (rope_d != GEMM_ROPE_D || rope_n < 1 || cos == nullptr || sin == nullptr))
     return (int)cudaErrorInvalidValue;
   if (epi == EPI_BIAS_RESID && resid == nullptr) return (int)cudaErrorInvalidValue;
   const GemmArgs p{(const float*)bias, (const bf16*)resid, (const bf16*)cos,
-                   (const bf16*)sin, G, M, N, K, rope_n};
+                   (const bf16*)sin, epi == EPI_PARTIAL ? (float*)C : nullptr, G, M, N, K,
+                   rope_n};
   cudaStream_t s = (cudaStream_t)stream;
   switch (epi) {
-    case EPI_BIAS: return (int)launch_gemm<EPI_BIAS>(A, W, C, p, s);
-    case EPI_BIAS_ROPE: return (int)launch_gemm<EPI_BIAS_ROPE>(A, W, C, p, s);
-    case EPI_BIAS_GELU: return (int)launch_gemm<EPI_BIAS_GELU>(A, W, C, p, s);
-    case EPI_BIAS_RESID: return (int)launch_gemm<EPI_BIAS_RESID>(A, W, C, p, s);
+    case EPI_BIAS:
+      return (int)(tail ? launch_gemm<EPI_BIAS, true>(A, W, C, p, s)
+                        : launch_gemm<EPI_BIAS, false>(A, W, C, p, s));
+    case EPI_BIAS_ROPE:
+      return (int)(tail ? launch_gemm<EPI_BIAS_ROPE, true>(A, W, C, p, s)
+                        : launch_gemm<EPI_BIAS_ROPE, false>(A, W, C, p, s));
+    case EPI_BIAS_GELU: return (int)launch_gemm<EPI_BIAS_GELU, false>(A, W, C, p, s);
+    case EPI_BIAS_RESID: return (int)launch_gemm<EPI_BIAS_RESID, false>(A, W, C, p, s);
+    case EPI_PARTIAL: return (int)launch_gemm<EPI_PARTIAL, true>(A, W, C, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// y (rows, N) bf16 = bf16(resid + bf16(s + bias)), or bf16(s + bias) with
+// resid null; s (rows, N) fp32, bias (rows / rows_per_g, N) fp32, resid like
+// y; all contiguous and 16-byte aligned, N % 8 == 0
+A3R_EXPORT int a3r_finish(const void* s, const void* bias, const void* resid, void* y,
+                          long long rows_per_g, long long rows, int N, void* stream) {
+  if (N < 8 || N % 8 || rows < 1 || rows_per_g < 1 || s == nullptr || bias == nullptr ||
+      ((uintptr_t)s | (uintptr_t)bias | (uintptr_t)resid | (uintptr_t)y) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long n8 = rows * N / 8, need = (n8 + FIN_THREADS - 1) / FIN_THREADS;
+  const long long fill = 8LL * sm_count();
+  if (fill <= 0) return (int)cudaErrorInvalidDevice;
+  finish_kernel<<<(unsigned)(need < fill ? need : fill), FIN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)s, (const float*)bias, (const bf16*)resid, (bf16*)y, rows_per_g, n8, N);
+  return (int)cudaGetLastError();
 }
 
 // q, k, v, o (rows, N, C) bf16, contiguous and 16-byte aligned, head h at

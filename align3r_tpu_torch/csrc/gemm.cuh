@@ -66,6 +66,19 @@
 //                   bf16(bf16(t cos) + bf16(+-tp sin)), token = row % rope_n
 //   EPI_BIAS_GELU   bf16(gelu_erf(acc + bias))
 //   EPI_BIAS_RESID  bf16(resid + bf16(acc + bias))
+//   EPI_PARTIAL     acc in fp32, no bias: a rank's share of a product split
+//                   over K (the tensor-parallel sites' out-projection and fc2);
+//                   the sum over the ranks is finished by finish_kernel
+//                   (fused_site.cu) as EPI_BIAS / EPI_BIAS_RESID would
+//
+// N is a multiple of 128, or of 64 for EPI_BIAS, EPI_BIAS_ROPE and
+// EPI_PARTIAL (a rank's q/k/v of a split site are C / m wide, 192 at C = 768,
+// m = 4): their TAIL instances take a last tile 64 wide. Its second W box
+// repeats the first (those columns are computed and never stored), its bias
+// slice is 64 floats and C is stored for its first 64 columns only. The
+// instances without TAIL are the code they were before the tail existed: at
+// 168 registers the core has no room to spare, and the residual's and GELU's
+// epilogues spilled with the tail's predicates in them.
 #pragma once
 
 #include "sm90_ptx.cuh"
@@ -77,10 +90,12 @@ enum Epilogue : int {
   EPI_BIAS_ROPE = 1,   // RoPE2D(bf16(acc + bias)) with bf16 cos/sin tables
   EPI_BIAS_GELU = 2,   // bf16(gelu_erf(acc + bias))
   EPI_BIAS_RESID = 3,  // bf16(resid + bf16(acc + bias))
+  EPI_PARTIAL = 5,     // acc in fp32, no bias
 };
 
 constexpr int GBM = 128;                   // rows of a tile: two wgmma halves of 64
 constexpr int GBN = 128;                   // columns of a tile
+constexpr int GBN_TAIL = 64;               // N % GBN_TAIL == 0: a last tile may be 64 wide
 constexpr int GBK = 64;                    // k of a stage: one 128-byte swizzle row
 constexpr int GSTAGES = 4;                 // depth of the (A, W) ring
 constexpr int GEMM_THREADS = 384;          // the producer and two consumer warpgroups
@@ -109,6 +124,7 @@ struct GemmArgs {
   const bf16* resid;   // (G, M, N), EPI_BIAS_RESID
   const bf16* cos;     // (rope_n, 64) token-major, EPI_BIAS_ROPE
   const bf16* sin;
+  float* part;         // (G, M, N) fp32, EPI_PARTIAL's output
   int G, M, N, K;
   int rope_n;          // tokens per sequence: row m is token m % rope_n
 };
@@ -126,7 +142,8 @@ __device__ __forceinline__ uint32_t gemm_smem_base(const void* smem_raw) {
 //   p.walk()                           .tiles, .nk, .at(t) -> P::Tile
 //   p.prologue(smem)                   by every thread, before the roles split
 //   p.load(sa, ta, tw, bar, tile, kt)  the producer's TMA loads of one stage
-//   p.bias(tile)                       the tile's fp32 bias slice (128 floats)
+//   p.bias(tile), p.bias_bytes(tile)   the tile's fp32 bias slice (up to 128 floats;
+//                                      0 bytes: none, and no copy is issued)
 //   p.rows(tile, wl, lane)             the epilogue's per-tile state
 //   p.chunk(a, hm, h, st, bias, smem, wl, lane)   one (half, row half) chunk
 //   p.store(tc, cbase, tile)           the issuer's TMA stores of the C tile
@@ -169,8 +186,9 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap* ta, const CUtensorM
         const auto tile = tl.at(t);
         const int b = i & 1;   // tile i's consumer
         if (i >= 2) mbar_wait(bempty + 8 * b, ((i >> 1) - 1) & 1);
-        mbar_expect_tx(bfull + 8 * b, GBN * 4);
-        bulk_load(base + L::BIAS + b * GBN * 4, p.bias(tile), GBN * 4, bfull + 8 * b);
+        const uint32_t bb = p.bias_bytes(tile);
+        mbar_expect_tx(bfull + 8 * b, bb);
+        if (bb) bulk_load(base + L::BIAS + b * GBN * 4, p.bias(tile), bb, bfull + 8 * b);
         for (int kt = 0; kt < tl.nk; ++kt, ++it) {
           const int s = it % S;
           if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
@@ -307,10 +325,13 @@ __device__ __forceinline__ void gemm_core(const CUtensorMap* ta, const CUtensorM
 // ------------------------------------------------------------ the GEMM
 
 // The GEMM's policy: A (G, M, K) and W (G, K, N) by 3-D maps, tiles
-// (G, M / GBM, N / GBN) with N fastest, C (G, M, N) bf16 by TMA stores.
-template <int EPI>
+// (G, M / GBM, N / GBN) with N fastest (both rounded up), C (G, M, N) bf16 by
+// TMA stores; EPI_PARTIAL's fp32 C from registers. TAIL: N % 128 may be 64.
+template <int EPI, bool TAIL>
 struct GemmPolicy {
-  static constexpr bool RELU_A = false, TMA_STORE = true, C_PASS = false;
+  static_assert(!TAIL || EPI == EPI_BIAS || EPI == EPI_BIAS_ROPE || EPI == EPI_PARTIAL,
+                "a 64-wide last tile is taken by the bias, RoPE and partial epilogues");
+  static constexpr bool RELU_A = false, TMA_STORE = EPI != EPI_PARTIAL, C_PASS = false;
   struct Tile { int g, m0, n0; };
   struct Walk {
     int nn, nm, tiles, nk;
@@ -327,18 +348,23 @@ struct GemmPolicy {
   GemmArgs p;
 
   __device__ __forceinline__ Walk walk() const {
-    const int nn = p.N / GBN, nm = (p.M + GBM - 1) / GBM;
+    const int nn = TAIL ? (p.N + GBN - 1) / GBN : p.N / GBN, nm = (p.M + GBM - 1) / GBM;
     return Walk{nn, nm, p.G * nm * nn, p.K / GBK};
   }
   __device__ __forceinline__ void prologue(unsigned char*) const {}
   __device__ __forceinline__ void load(uint32_t sa, const CUtensorMap* ta, const CUtensorMap* tw,
                                        uint32_t bar, const Tile& t, int kt) const {
+    // a 64-wide last tile reads its one W box twice (the stage's bytes stay whole)
+    const int n1 = TAIL && t.n0 + 64 >= p.N ? t.n0 : t.n0 + 64;
     sm90::tma_load(sa, ta, bar, kt * GBK, t.m0, t.g);
     sm90::tma_load(sa + GemmSmem::AB, tw, bar, t.n0, kt * GBK, t.g);
-    sm90::tma_load(sa + GemmSmem::AB + GBK * 128, tw, bar, t.n0 + 64, kt * GBK, t.g);
+    sm90::tma_load(sa + GemmSmem::AB + GBK * 128, tw, bar, n1, kt * GBK, t.g);
   }
   __device__ __forceinline__ const float* bias(const Tile& t) const {
     return p.bias + (size_t)t.g * p.N + t.n0;
+  }
+  __device__ __forceinline__ uint32_t bias_bytes(const Tile& t) const {
+    return EPI == EPI_PARTIAL ? 0u : TAIL ? 4u * (uint32_t)min(GBN, p.N - t.n0) : 4u * GBN;
   }
   __device__ __forceinline__ Rows rows(const Tile& t, int wl, int lane) const {
     return Rows{t.g, t.m0, t.n0,
@@ -351,6 +377,17 @@ struct GemmPolicy {
                                         int lane) const {
     const int M = p.M, N = p.N, c = 2 * (lane & 3);
     const int row = st.m0 + 64 * hm + 16 * wl + (lane >> 2) + 8 * h;
+    if constexpr (EPI == EPI_PARTIAL) {
+      const bool wide = !TAIL || st.n0 + 64 < N;   // the tile's columns 64..127 lie inside C
+      if (row < M) {
+        float* out = p.part + ((size_t)st.g * M + row) * N + st.n0 + c;
+#pragma unroll
+        for (int j = 0; j < GBN / 8; ++j)
+          if (j < 8 || wide)
+            *reinterpret_cast<float2*>(out + 8 * j) = make_float2(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+      }
+      return;
+    }
     // side[j]: the bf16 pair of the row at columns n0 + 8 j + c (resid),
     // or of its token at head columns 8 j + c of cos (j < 8), sin (j >= 8)
     uint32_t side[16];
@@ -417,16 +454,17 @@ struct GemmPolicy {
     for (int hm = 0; hm < 2; ++hm)
       if (t.m0 + 64 * hm < p.M) {
         sm90::tma_store(tc, cbase + 2 * hm * (64 * 128), t.n0, t.m0 + 64 * hm, t.g);
-        sm90::tma_store(tc, cbase + (2 * hm + 1) * (64 * 128), t.n0 + 64, t.m0 + 64 * hm, t.g);
+        if (!TAIL || t.n0 + 64 < p.N)
+          sm90::tma_store(tc, cbase + (2 * hm + 1) * (64 * 128), t.n0 + 64, t.m0 + 64 * hm, t.g);
       }
   }
 };
 
-template <int EPI>
+template <int EPI, bool TAIL>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw,
           const __grid_constant__ CUtensorMap tc, const GemmArgs p) {
-  gemm_core(&ta, &tw, &tc, GemmPolicy<EPI>{p});
+  gemm_core(&ta, &tw, &tc, GemmPolicy<EPI, TAIL>{p});
 }
 
 // ------------------------------------------------------------ host side
@@ -458,22 +496,22 @@ inline int sm_count() {
   return sms;
 }
 
-// Launches gemm_sm90<EPI> on A (G, M, K), W (G, K, N) and C (G, M, N):
-// min(tiles, SMs) blocks.
-template <int EPI>
+// Launches gemm_sm90<EPI, TAIL> on A (G, M, K), W (G, K, N) and C (G, M, N)
+// (bf16; fp32 for EPI_PARTIAL, whose p.part is C): min(tiles, SMs) blocks.
+template <int EPI, bool TAIL>
 cudaError_t launch_gemm(const void* A, const void* W, void* C, const GemmArgs& p,
                         cudaStream_t stream) {
-  cudaError_t e = sm90::configure<gemm_sm90<EPI>>(GemmSmem::BYTES);
+  cudaError_t e = sm90::configure<gemm_sm90<EPI, TAIL>>(GemmSmem::BYTES);
   if (e != cudaSuccess) return e;
   const int sms = sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
-  CUtensorMap ta, tw, tc;
+  CUtensorMap ta, tw, tc{};   // EPI_PARTIAL stores from registers: no C map
   if (!gemm_map(&ta, A, p.G, p.M, p.K, GBM) || !gemm_map(&tw, W, p.G, p.K, p.N, GBK) ||
-      !gemm_map(&tc, C, p.G, p.M, p.N, 64))
+      (EPI != EPI_PARTIAL && !gemm_map(&tc, C, p.G, p.M, p.N, 64)))
     return cudaErrorInvalidValue;
-  const long long tiles = (long long)p.G * ((p.M + GBM - 1) / GBM) * (p.N / GBN);
+  const long long tiles = (long long)p.G * ((p.M + GBM - 1) / GBM) * ((p.N + GBN - 1) / GBN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  gemm_sm90<EPI><<<grid, GEMM_THREADS, GemmSmem::BYTES, stream>>>(ta, tw, tc, p);
+  gemm_sm90<EPI, TAIL><<<grid, GEMM_THREADS, GemmSmem::BYTES, stream>>>(ta, tw, tc, p);
   return cudaGetLastError();
 }
 

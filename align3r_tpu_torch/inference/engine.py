@@ -16,6 +16,14 @@ which NCCL and gloo both take on CUDA tensors. Without a group (or in a group
 of one) the one rank holds every row and nothing is gathered, whatever
 process group is up.
 
+Tensor parallelism (``mesh``, parallel.mesh.make_mesh; JAX engine.py:210-261,
+:337-380): the ranks of a model group split one replica of the network
+(parallel/shardings.py) and run its encoder, decoder and prior blocks on
+their share of the heads and hidden units, K1/K2 on each rank, one
+all-reduce a sublayer; they take the same images and pairs. The data groups
+split the batch and gather as ``group`` does. The heads, patch embeds and
+zero convs run whole on every rank, as JAX keeps them replicated.
+
 Landscape only (W >= H), as the JAX engine. The output dict follows the
 reference contract (engine.py:295-300): view1/view2 {'idx' (E,) int32 numpy},
 pred1 {'pts3d' (E, H, W, 3), 'conf' (E, H, W)}, pred2
@@ -33,6 +41,7 @@ from align3r_tpu_torch.models.align3r import (PreparedAlign3R, decode_heads,
                                               decode_pair, embed_point_cloud,
                                               encode_images)
 from align3r_tpu_torch.parallel.mesh import all_gather_sum
+from align3r_tpu_torch.parallel.shardings import for_mesh
 
 
 def _share(start: int, size: int, end: int, nd: int, r: int) -> Tuple[int, int]:
@@ -47,7 +56,7 @@ def _share(start: int, size: int, end: int, nd: int, r: int) -> Tuple[int, int]:
 def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
               imgs, priors, batch_size: int = 16,
               encode_chunk: int = 16, head_conv_impl: str = "xla",
-              group=None) -> Dict:
+              group=None, mesh=None) -> Dict:
     """Run the two-view network over a frame graph.
 
     pairs: (i, j) image-index edges; imgs (n, H, W, 3) normalised images and
@@ -56,11 +65,21 @@ def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
     (``model.dtype``, ``model.head_dtype``). head_conv_impl: "xla" or
     "pipeline" (K7/K8 heads, JAX engine.py:270). group: a process group to
     split the work over (the module docstring); batch_size and encode_chunk
-    must be multiples of its size."""
+    must be multiples of its size. mesh: a parallel.mesh.Mesh instead of a
+    group: its data group splits the work as `group` does and its model group
+    splits the network, whole `model` or this rank's share of it (the model
+    size must divide both head counts)."""
     # fp32 convolutions (the pinned final head conv, an fp32 engine) must not
     # run in TF32: the reference keeps them in full fp32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    tp = None
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("inference takes a group or a mesh, not both")
+        group = mesh.data_group
+        model = for_mesh(model, mesh)
+        tp = mesh.model_group if mesh.n_model > 1 else None
     dev = model.device
     imgs = torch.as_tensor(imgs, dtype=torch.float32, device=dev)
     priors = torch.as_tensor(priors, dtype=torch.float32, device=dev)
@@ -82,7 +101,7 @@ def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
     for s in range(0, n, encode_chunk):
         lo, hi = _share(s, encode_chunk, n, nd, r)
         if hi > lo:
-            feats[lo:hi] = encode_images(model, imgs[lo:hi])
+            feats[lo:hi] = encode_images(model, imgs[lo:hi], tp)
             pc_tok[lo:hi] = embed_point_cloud(model, priors[lo:hi]).float()
     gather = (lambda t: all_gather_sum(t, group)) if nd > 1 else (lambda t: t)
     feats = gather(feats)
@@ -105,7 +124,7 @@ def inference(pairs: Sequence[Tuple[int, int]], model: PreparedAlign3R,
         bi, bj = ti[lo:hi], tj[lo:hi]
         pc = torch.cat([pc_tok.index_select(0, bi), pc_tok.index_select(0, bj)])
         hooks1, hooks2 = decode_pair(model, feats.index_select(0, bi),
-                                     feats.index_select(0, bj), pc, grid)
+                                     feats.index_select(0, bj), pc, grid, tp)
         for out, part in zip((res1, res2), decode_heads(model, hooks1, hooks2, (H, W),
                                                         head_conv_impl)):
             for k, v in part.items():

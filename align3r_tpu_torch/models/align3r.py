@@ -218,6 +218,9 @@ class PreparedAlign3R:
     zero_convs: List[Tuple[torch.Tensor, torch.Tensor]]
     head1: Dict[str, Any]
     head2: Dict[str, Any]
+    # (n_model, r): the blocks hold rank r's share of a split over a model
+    # group of n_model (parallel/shardings.py); (1, 0): whole
+    tp: Tuple[int, int] = (1, 0)
 
     @property
     def device(self):
@@ -304,15 +307,17 @@ def _grid_pos(pm: PreparedAlign3R, H: int, W: int, device):
     return make_grid_positions(H // p, W // p, device=device)
 
 
-def encode_images(pm: PreparedAlign3R, imgs):
-    """imgs (B, H, W, 3) NHWC landscape -> tokens (B, N, D_enc) fp32."""
+def encode_images(pm: PreparedAlign3R, imgs, group=None):
+    """imgs (B, H, W, 3) NHWC landscape -> tokens (B, N, D_enc) fp32. group:
+    the model group pm was split over (parallel/shardings.py), else None."""
     cfg = pm.cfg
     Bn, H, W, _ = imgs.shape
     x = B.apply_patch_embed(*pm.patch_embed, imgs.to(pm.dtype), cfg.patch_size)
     pos = _grid_pos(pm, H, W, imgs.device)
     x = _add_cosine(cfg, x, pos, cfg.enc_embed_dim)[None]
     for p in pm.enc_blocks:
-        x = B.apply_block_prepared(p, x, pos, cfg.enc_num_heads, cfg.effective_rope_base)
+        x = B.apply_block_prepared(p, x, pos, cfg.enc_num_heads, cfg.effective_rope_base,
+                                   group)
     return L.layernorm(x[0], *pm.enc_norm).float()
 
 
@@ -322,11 +327,12 @@ def embed_point_cloud(pm: PreparedAlign3R, prior_pc):
                                prior_pc.to(pm.dtype), pm.cfg.patch_size)
 
 
-def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw):
+def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw, group=None):
     """Dual cross-attending decoder with prior injection, both streams
     stacked (G=2) per layer. feat1/feat2 (B, N, D_enc) encoder tokens;
-    pc_tokens (2B, N, D_dec) prior tokens for [view1; view2]. Returns per
-    view the hook list [enc_out, dec_6, dec_9, dec_norm(dec_12)] in fp32."""
+    pc_tokens (2B, N, D_dec) prior tokens for [view1; view2]; group: as
+    encode_images'. Returns per view the hook list [enc_out, dec_6, dec_9,
+    dec_norm(dec_12)] in fp32."""
     cfg = pm.cfg
     dt = pm.dtype
     hooks = cfg.dpt_hooks()
@@ -344,10 +350,10 @@ def decode_pair(pm: PreparedAlign3R, feat1, feat2, pc_tokens, grid_hw):
     for layer in range(cfg.dec_depth):
         f = B.apply_decoder_layer_prepared(pm.dec_layers[layer], f, pos,
                                           cfg.dec_num_heads,
-                                          cfg.effective_rope_base)
+                                          cfg.effective_rope_base, group)
         if layer < cfg.n_pc_blocks:
             pcs = B.apply_block_prepared(pm.pc_blocks[layer], pcs, pos,
-                                cfg.dec_num_heads, cfg.effective_rope_base)
+                                         cfg.dec_num_heads, cfg.effective_rope_base, group)
             inj = L.dense(pcs[0], *pm.zero_convs[layer + 1])
             f = f + inj.reshape(f.shape)
         if layer + 1 in hooks[1:]:

@@ -9,6 +9,8 @@ Three parts:
   matmul weights stacked over a leading stream axis G and stored (in, out) in
   the compute dtype, biases and LayerNorm parameters in fp32. A prepared
   block goes through the fused sites (ops/fused_site.py, kernels K1 and K2);
+  a block split over a model group (parallel/shardings.py) through each
+  rank's share of them, summed over the group and finished;
 - the differentiable path of training (JAX blocks.py:112-356), as functions
   on the modules' own parameters so that gradients reach them: attention
   through ops/attention.py (K6 under attn_impl="auto" on the card), or whole
@@ -16,7 +18,10 @@ Three parts:
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 
@@ -25,6 +30,7 @@ from align3r_tpu_torch.models.rope import apply_rope2d
 from align3r_tpu_torch.ops import fused_site as FS
 from align3r_tpu_torch.ops.attention import attention
 from align3r_tpu_torch.ops.fused_site import attention_site, mlp_site
+from align3r_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 # ------------------------------------------------------------------ modules
@@ -156,8 +162,12 @@ def prepare_decoder_layer(b1: DecoderBlock, b2: DecoderBlock, dtype):
 
 # ------------------------------------------------------------ apply (fused)
 
-def apply_block_prepared(p, x, pos, num_heads: int, rope_base=100.0):
-    """Encoder-style block on prepared weights: x (G, B, N, C), pos (N, 2)."""
+def apply_block_prepared(p, x, pos, num_heads: int, rope_base=100.0, group=None):
+    """Encoder-style block on prepared weights: x (G, B, N, C), pos (N, 2).
+    group: the model group p is this rank's share of (run_steps), or None
+    (or a group of one) for whole weights."""
+    if _model_size(p, x, group) > 1:
+        return run_steps(block_steps(p, x, pos, num_heads, rope_base), x, group)
     x = attention_site(x, x, p["wq"], p["wk"], p["wv"], p["wo"], p["bq"],
                        p["bk"], p["bv"], p["bo"], pos, num_heads, rope_base,
                        ln_q=p["ln1"], ln_kv="same", residual=True)
@@ -165,10 +175,12 @@ def apply_block_prepared(p, x, pos, num_heads: int, rope_base=100.0):
                     residual=True)
 
 
-def apply_decoder_layer_prepared(p, x, pos, num_heads: int, rope_base=100.0):
+def apply_decoder_layer_prepared(p, x, pos, num_heads: int, rope_base=100.0, group=None):
     """One decoder layer over both streams on prepared weights: x (2, B, N, C). The cross-
     attention memory of each stream is the other stream's pre-layer input
-    (JAX blocks.py:283-333)."""
+    (JAX blocks.py:283-333). group: as apply_block_prepared's."""
+    if _model_size(p, x, group) > 1:
+        return run_steps(decoder_layer_steps(p, x, pos, num_heads, rope_base), x, group)
     y = torch.flip(x, dims=(0,))
     x = attention_site(x, x, p["wq"], p["wk"], p["wv"], p["wo"], p["bq"],
                        p["bk"], p["bv"], p["bo"], pos, num_heads, rope_base,
@@ -178,6 +190,52 @@ def apply_decoder_layer_prepared(p, x, pos, num_heads: int, rope_base=100.0):
                        ln_q=p["ln2"], ln_kv=p.get("lny"), residual=True)
     return mlp_site(x, p["w1"], p["b1"], p["w2"], p["b2"], ln=p["ln3"],
                     residual=True)
+
+
+# ------------------------------------------------ apply (tensor-parallel)
+
+def _model_size(p, x, group) -> int:
+    """The model group's size m; p's q/k/v must be C / m wide."""
+    m = 1 if group is None else dist.get_world_size(group)
+    if p["wq"].shape[-1] * m != x.shape[-1]:
+        raise ValueError(f"q/k/v {p['wq'].shape[-1]} wide at C = {x.shape[-1]} is not a "
+                         f"share of a model group of {m}")
+    return m
+
+
+def block_steps(p, x, pos, num_heads: int, rope_base=100.0):
+    """An encoder-style block on one rank's share of its weights as its
+    sublayers, (partial, bias) pairs: partial(x) is the rank's fp32 share of
+    the sublayer's residual branch, bias the branch's whole bias (run_steps).
+    num_heads: the whole block's; the rank runs num_heads / m of them."""
+    heads = num_heads * p["wq"].shape[-1] // x.shape[-1]
+    return [(lambda t: FS.attention_partial(t, t, p["wq"], p["wk"], p["wv"], p["wo"], p["bq"],
+                                            p["bk"], p["bv"], pos, heads, rope_base,
+                                            ln_q=p["ln1"], ln_kv="same"), p["bo"]),
+            (lambda t: FS.mlp_partial(t, p["w1"], p["b1"], p["w2"], ln=p["ln2"]), p["b2"])]
+
+
+def decoder_layer_steps(p, x, pos, num_heads: int, rope_base=100.0):
+    """block_steps of a decoder layer, x its input (2, B, N, C): the self
+    site, the cross site (memory: the other stream's x) and the MLP."""
+    y = torch.flip(x, dims=(0,))
+    self_attn = block_steps(p, x, pos, num_heads, rope_base)[0]
+    heads = num_heads * p["wq"].shape[-1] // x.shape[-1]
+    cross = (lambda t: FS.attention_partial(t, y, p["cq"], p["ck"], p["cv"], p["co"], p["cbq"],
+                                            p["cbk"], p["cbv"], pos, heads, rope_base,
+                                            ln_q=p["ln2"], ln_kv=p.get("lny")), p["cbo"])
+    return [self_attn, cross, (lambda t: FS.mlp_partial(t, p["w1"], p["b1"], p["w2"],
+                                                         ln=p["ln3"]), p["b2"])]
+
+
+def run_steps(steps, x, group):
+    """x through the sublayers: the rank's fp32 partial, summed over the
+    model group in place (one all-reduce), then finished with the bias and x
+    as the residual: bf16(x + bf16(sum + bias)) (fused_site.finish)."""
+    reduce = functools.partial(all_reduce_sum, group=group)
+    for part, bias in steps:
+        x = FS.finish(reduce(part(x)), bias, x.dtype, resid=x)
+    return x
 
 
 def apply_patch_embed(weight, bias, img, patch_size: int):

@@ -36,6 +36,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "a3r_layernorm": [_P, _P, _P, _P, _LL, _LL, _I, _F, _P],
     "a3r_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "a3r_finish": [_P, _P, _P, _P, _LL, _LL, _I, _P],
     "a3r_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "a3r_small_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "a3r_edge_fwd": [_P] * 10 + [_I] * 5 + [_P],

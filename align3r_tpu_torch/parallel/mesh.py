@@ -12,11 +12,16 @@ also usable for several ranks sharing one card, which NCCL refuses) takes
 only ``broadcast`` and ``all_reduce``. The port therefore gathers with
 :func:`all_gather_sum`: each rank writes its rows into zeros and one
 ``all_reduce`` sums them, exact because every element has one writer.
+
+:func:`make_mesh` lays the ranks out as JAX's ('data', 'model') mesh: a model
+group splits one replica of the network over its ranks (tensor parallelism,
+parallel/shardings.py), the data groups split the batch.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -109,10 +114,50 @@ def zero1_shard_dims(shapes: Sequence[Sequence[int]], n: int,
     return out
 
 
-def all_gather_sum(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum `t` over the ranks in place (all_reduce) and return it; with each
-    element written by one rank and zero on the others, a gather that both
-    NCCL and gloo take on CUDA tensors."""
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over the ranks of `group` (the world by default) in place and
+    return it; without a process group, `t` as it is."""
     if world_size() > 1:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def all_gather_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """all_reduce_sum: with each element written by one rank and zero on the
+    others, a gather that both NCCL and gloo take on CUDA tensors."""
+    return all_reduce_sum(t, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in an n_data x n_model layout of the ranks: its data
+    group (the ranks that split the batch, one of each model group) and its
+    model group (the ranks that split one replica), as process groups, None
+    where the run has no process group; its rank in each."""
+    n_data: int
+    n_model: int
+    data_group: Any
+    model_group: Any
+    data_rank: int
+    model_rank: int
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
+    """The ranks as JAX's make_mesh lays devices out (mesh.py:44-51,
+    ``reshape(n_data, n_model)``): model group d is the n_model consecutive
+    ranks d n_model .. (d + 1) n_model - 1, data group j the ranks j, j +
+    n_model, ... Every rank creates every group (dist.new_group is
+    collective). n_data defaults to the world size over n_model; the layout
+    must cover the world. A run with no process group is one rank in both."""
+    world = world_size()
+    if n_data is None:
+        n_data = world // n_model
+    if n_data < 1 or n_model < 1 or n_data * n_model != world:
+        raise ValueError(f"a mesh of {n_data} data x {n_model} model ranks does not cover "
+                         f"the {world} ranks of the run")
+    if world == 1:
+        return Mesh(1, 1, None, None, 0, 0)
+    data = [dist.new_group([d * n_model + j for d in range(n_data)]) for j in range(n_model)]
+    model = [dist.new_group(list(range(d * n_model, (d + 1) * n_model))) for d in range(n_data)]
+    d, j = divmod(rank(), n_model)
+    return Mesh(n_data, n_model, data[j], model[d], d, j)

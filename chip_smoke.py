@@ -10,8 +10,9 @@ final result line:
                 with nvcc into build/ and prints the seconds it took, and
                 each kernel's registers and spill bytes (ptxas -v). K3/K4's
                 kernels must spill nothing. Every
-                instance of the GEMM core (K1/K2's gemm_sm90 and K7/K8's
-                bf16 conv_sm90, 4 each) must spill nothing and its SASS
+                instance of the GEMM core (K1/K2's gemm_sm90, 7: four
+                epilogues, bias and RoPE with a 64-wide last tile, the fp32
+                partial; K7/K8's bf16 conv_sm90, 4) must spill nothing and its SASS
                 (cuobjdump -sass) must hold HGMMA instructions; so must K7/
                 K8's fp32 3xTF32 conv (conv_tf32_sm90, 4 epilogues), K9's
                 bf16 D = 256 backward (dK/dV and dQ), K6's fp32 forward (3
@@ -231,7 +232,30 @@ final result line:
                 engine's, finite outputs. The dp engine's one-rank
                 reference runs the ranks' own batch sizes (cuDNN picks the
                 heads' bf16 conv algorithms by batch size).
-The kernels phase also holds K7 (the four refinenet shapes, with and without
+ 16. tp       - tensor-parallel serving on the one card, run after `ddp`:
+                first tools/tp_drift.py's drift of a 4-way split against the
+                whole VIT_L_512, layer by layer (the share of bf16 elements
+                that differ); then TP_RANKS = 4 gloo ranks of
+                `python3 chip_smoke.py --tp-engine-rank`, each splitting the
+                seeded bf16 VIT_L_512 (shard_prepared) and running
+                inference(mesh=make_mesh(1, 4)), then make_mesh(2, 2), on
+                main's first 8 frames (swinstride-5 symmetrised, 32 pairs,
+                batch 16): every rank must launch K1, K2, the GEMM core, the
+                finishing pass and the LayerNorm, hold at most 1.1 / m of one
+                rank's block weights, and prints its peak device memory and
+                seconds (gloo stages the all-reduces through the host:
+                plumbing, not speed). Rank 0 holds the first encoder block,
+                decoder layer and prior block of each layout against one
+                rank's (median relative 1e-3, 2 bf16 ulps of the largest
+                value) and the engine's output against one rank's inference:
+                conf median relative 1e-3, pts3d 3e-2 (bf16 rounds the split
+                sums' elements the other way now and then, and the drift
+                spreads through the layers), every value finite.
+The kernels phase also holds the tensor-parallel launches at main's shapes
+(check_tp_kernels): the partial epilogue at the out-projection and fc2 split 2
+and 4 ways, the decoder's 192-wide q/k and v products, the finishing pass,
+the split K1 and K2 sites at m = 4 and K1's attention launch at 4 and 3 heads;
+and K7 (the four refinenet shapes, with and without
 a base, in bf16 and fp32), K8 (the head tail at the main path's shape, bf16
 and fp32, and at (4, 72, 128, 256) fp32), K3/K4 with a scene axis (4 scenes of
 the main path's shape laid end to end, bf16 and fp32: against the plain
@@ -273,6 +297,12 @@ LONG_HW, LONG_PAIRS, LONG_ACCUM = (512, 512), 8, 2
 BATCH_SCENES = 4           # the batch phase's videos (seeds 0-3), solved together
 DDP_RANKS, DDP_STEPS, DDP_ACCUM = 2, 4, 2
 DP_TOL = 1e-5              # the data-parallel engine against one rank, atol and rtol
+# the tp phase: model sizes of the kernel checks, the ranks, the layouts
+# (n_data, n_model), main's frames cut to TP_FRAMES at batch TP_BATCH, and
+# the bounds against one rank (median relative difference; see tp_path)
+TP_SPLITS, TP_RANKS, TP_LAYOUTS = (2, 4), 4, ((1, 4), (2, 2))
+TP_FRAMES, TP_BATCH = 8, 16
+TP_BLOCK_TOL, TP_CONF_TOL, TP_PTS_TOL = 1e-3, 1e-3, 3e-2
 DEMO_FRAMES, DEMO_HW = 12, (576, 1024)
 # the data phase: FlyingThings3D (SceneFlow layout) at 960x540, Sintel at
 # 1024x436; 24 + 8 pairs, one epoch of 16 micro-steps
@@ -382,8 +412,9 @@ def ptxas_usage(log: str) -> dict:
 
 
 # the instances of the Hopper GEMM core (gemm.cuh), by kernel name: K1/K2's
-# GEMM (4 epilogues) and K7/K8's bf16 3x3 conv (4 epilogues)
-CORE_INSTANCES = {"gemm_sm90": 4, "conv_sm90": 4}
+# GEMM (7: bias, RoPE, GELU, residual; bias and RoPE with a 64-wide last tile;
+# the fp32 partial) and K7/K8's bf16 3x3 conv (4 epilogues)
+CORE_INSTANCES = {"gemm_sm90": 7, "conv_sm90": 4}
 # the attention kernels this build must hold on the warpgroup-MMA core, by a
 # regular expression on the mangled name: K9's bf16 backward at D = 256
 # (dK/dV and dQ), K6's fp32 forward (3xTF32, at DP = 32, 64, 128) and K9's
@@ -714,6 +745,171 @@ def check_gemms(dev, gen):
                 tflops=flop / ms / 1e9, plain_ms=cuda_time(plain, 3),
                 library_ms=graph_time(lib, 20), bound_ms=b_ms, bound_by=b_by)))
             del a, w, resid, out, ref
+    return rows
+
+
+def check_tp_kernels(dev, gen):
+    """The tensor-parallel sites' launches at main's shapes split TP_SPLITS
+    (2 and 4) ways, one rank's share: the partial epilogue (EPI_PARTIAL, fp32,
+    no bias) at the out-projection (K = C / m) and fc2 (K = F / m) against
+    gemm_plain (1e-4 of the largest value: fp32 sums of the same bf16
+    products in another order), beside torch.mm / bmm with an fp32 output;
+    the decoder's 192-wide q/k and v products at m = 4 (N % 128 == 64: a
+    64-wide last tile) against gemm_plain (2 bf16 ulps of the largest, 1.6e-2
+    x max), beside torch.baddbmm; the finishing pass at the encoder's and the
+    decoder's rows against finish_plain (bit for bit: the same fp32 add and
+    the same two roundings); the split K1 and K2 sites at m = 4 against their
+    plain composition (site_plain / mlp_plain with no bias: 2 bf16 ulps of the
+    largest partial) and K1's attention launch at H / m heads (4 of 64 at
+    C = 256, 3 at C = 192) against K6 bit for bit. All timed from a CUDA graph."""
+    import torch
+    from align3r_tpu_torch.models.rope import make_grid_positions
+    from align3r_tpu_torch.ops import fused_site as fs
+    bf = torch.bfloat16
+    pos = make_grid_positions(H // 16, W // 16, device=dev)
+    N_tok = pos.shape[0]
+
+    def rnd(*s, scale=1.0, dtype=bf):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
+
+    def finite(t):
+        return bool(torch.isfinite(t.float()).all())
+
+    rows = []
+    # the split sites at m = 4, one rank's share
+    m = 4
+    for name, G, Bn, C, Hh, cross in (("encoder self", 1, 16, 1024, 16, False),
+                                      ("decoder self", 2, 32, 768, 12, False),
+                                      ("decoder cross", 2, 32, 768, 12, True)):
+        Cl, hl = C // m, Hh // m
+        wq, wk, wv = (rnd(G, C, Cl, scale=C ** -0.5) for _ in range(3))
+        wo = rnd(G, Cl, C, scale=Cl ** -0.5)
+        bq, bk, bv = (rnd(G, Cl, scale=0.1, dtype=torch.float32) for _ in range(3))
+        lnq = (1 + rnd(G, C, scale=0.1, dtype=torch.float32), rnd(G, C, scale=0.1,
+                                                                   dtype=torch.float32))
+        lnkv = (1 + rnd(G, C, scale=0.1, dtype=torch.float32),
+                rnd(G, C, scale=0.1, dtype=torch.float32)) if cross else "same"
+        x = rnd(G, Bn, N_tok, C)
+        kv = rnd(G, Bn, N_tok, C) if cross else x
+        cs, sn = fs.site_tables(pos, 64, 100.0, bf)
+        kern = lambda: fs.attention_partial(x, kv, wq, wk, wv, wo, bq, bk, bv, pos, hl, 100.0,
+                                            ln_q=lnq, ln_kv=lnkv)
+        plain = lambda: fs.site_plain(x, kv, wq, wk, wv, wo, bq, bk, bv, None, cs, sn, hl,
+                                      ln_q=lnq, ln_kv=lnkv)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        act = G * Bn * N_tok * C
+        nbytes = act * (2 if cross else 1) * 2 + 4 * G * C * Cl * 2 + 3 * G * Cl * 4 \
+            + (2 if cross else 1) * 2 * G * C * 4 + act * 4 + 2 * N_tok * 64 * 2
+        b_ms, b_by = bound(nbytes, 8 * G * Bn * N_tok * C * Cl + 4 * G * Bn * N_tok ** 2 * Cl,
+                           PEAK_BF16)
+        rows.append(ratios(dict(
+            kernel="K1 tp", shape=f"{name} split m={m}: {hl} of {Hh} heads, G={G} B={Bn} "
+                                  f"N={N_tok} C={C} -> fp32 partial",
+            max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+            ok=err <= 1.6e-2 * scale and finite(out), ms=graph_time(kern, 10),
+            ms_eager=cuda_time(kern, 10), plain_ms=cuda_time(plain, 3), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)))
+        del x, kv, out, ref
+    for name, G, Bn, C in (("encoder mlp", 1, 16, 1024), ("decoder mlp", 2, 32, 768)):
+        Fl = 4 * C // m
+        w1, w2 = rnd(G, C, Fl, scale=C ** -0.5), rnd(G, Fl, C, scale=(4 * C) ** -0.5)
+        b1 = rnd(G, Fl, scale=0.1, dtype=torch.float32)
+        lnp = (1 + rnd(G, C, scale=0.1, dtype=torch.float32),
+               rnd(G, C, scale=0.1, dtype=torch.float32))
+        x = rnd(G, Bn, N_tok, C)
+        kern = lambda: fs.mlp_partial(x, w1, b1, w2, ln=lnp)
+        plain = lambda: fs.mlp_plain(x, w1, b1, w2, None, ln=lnp)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        act = G * Bn * N_tok * C
+        b_ms, b_by = bound(act * 2 + 2 * G * C * Fl * 2 + G * Fl * 4 + 2 * G * C * 4 + act * 4,
+                           4 * G * Bn * N_tok * C * Fl, PEAK_BF16)
+        rows.append(ratios(dict(
+            kernel="K2 tp", shape=f"{name} split m={m}: F/m={Fl} of {4 * C}, G={G} B={Bn} "
+                                  f"N={N_tok} C={C} -> fp32 partial",
+            max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+            ok=err <= 1.6e-2 * scale and finite(out), ms=graph_time(kern, 10),
+            ms_eager=cuda_time(kern, 10), plain_ms=cuda_time(plain, 3), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)))
+        del x, out, ref
+    for site, G, Bn, C in (("encoder", 1, 16, 1024), ("decoder", 2, 32, 768)):
+        M = Bn * N_tok
+        for m in TP_SPLITS:
+            for kern_name, launch, K in (("K1 tp", "out-projection", C // m),
+                                         ("K2 tp", "fc2", 4 * C // m)):
+                a, w = rnd(G, M, K), rnd(G, K, C, scale=K ** -0.5)
+                kern = lambda: fs.gemm(a, w, None, fs.EPI_PARTIAL)
+                plain = lambda: fs.gemm_plain(a, w, None, fs.EPI_PARTIAL)
+                lib = ((lambda: torch.mm(a[0], w[0], out_dtype=torch.float32)) if G == 1
+                       else (lambda: torch.bmm(a, w, out_dtype=torch.float32)))
+                out, ref = kern(), plain()
+                torch.cuda.synchronize()
+                err, rel, scale = max_err(out, ref)
+                flop = 2 * G * M * C * K
+                b_ms, b_by = bound(G * (M * K + K * C) * 2 + G * M * C * 4, flop, PEAK_BF16)
+                ms = graph_time(kern, 20)
+                tiles = G * -(-M // fs.GEMM_BM) * -(-C // fs.GEMM_BN)
+                rows.append(ratios(dict(
+                    kernel=kern_name, shape=f"GEMM {site} {launch} partial (fp32, no bias) "
+                                            f"m={m} G={G} M={M} N={C} K={K}",
+                    max_abs_err=err, max_rel_err=rel, tol=1e-4 * scale,
+                    ok=err <= 1e-4 * scale and finite(out) and out.dtype == torch.float32,
+                    tiles=tiles, ms=ms, tflops=flop / ms / 1e9, plain_ms=cuda_time(plain, 3),
+                    library_ms=graph_time(lib, 20), bound_ms=b_ms, bound_by=b_by)))
+                del a, w, out, ref
+    # the decoder's q/k and v products at m = 4: N = 768 / 4 = 192
+    G, M, C, Nl = 2, 32 * N_tok, 768, 768 // 4
+    cos, sin = fs.site_tables(pos, 64, 100.0, bf)
+    for launch, epi in (("q/k (bias + RoPE)", fs.EPI_ROPE), ("v (bias)", fs.EPI_BIAS)):
+        a, w = rnd(G, M, C), rnd(G, C, Nl, scale=C ** -0.5)
+        b = rnd(G, Nl, scale=0.1, dtype=torch.float32)
+        kw = dict(cos=cos, sin=sin, rope_d=64, rope_n=N_tok) if epi == fs.EPI_ROPE else {}
+        kern = lambda: fs.gemm(a, w, b, epi, **kw)
+        plain = lambda: fs.gemm_plain(a, w, b, epi, **kw)
+        bb = b.to(bf)
+        lib = lambda: torch.baddbmm(bb[:, None], a, w)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        flop = 2 * G * M * Nl * C
+        b_ms, b_by = bound(G * (M * C + C * Nl + M * Nl) * 2 + G * Nl * 4, flop, PEAK_BF16)
+        ms = graph_time(kern, 20)
+        rows.append(ratios(dict(
+            kernel="K1 tp", shape=f"GEMM decoder {launch} m=4, N % 128 == 64 G={G} M={M} "
+                                  f"N={Nl} K={C}",
+            max_abs_err=err, max_rel_err=rel, tol=1.6e-2 * scale,
+            ok=err <= 1.6e-2 * scale and finite(out),
+            tiles=G * -(-M // fs.GEMM_BM) * -(-Nl // fs.GEMM_BN), ms=ms,
+            tflops=flop / ms / 1e9, plain_ms=cuda_time(plain, 3), library_ms=graph_time(lib, 20),
+            bound_ms=b_ms, bound_by=b_by)))
+        del a, w, out, ref
+    # the finishing pass: the sum of the partials + bias (+ residual)
+    for site, G, Bn, C in (("encoder", 1, 16, 1024), ("decoder", 2, 32, 768)):
+        s_ = torch.randn(G, Bn, N_tok, C, generator=gen, device=dev)
+        b = rnd(G, C, scale=0.1, dtype=torch.float32)
+        x = rnd(G, Bn, N_tok, C)
+        kern = lambda: fs.finish(s_, b, bf, resid=x)
+        plain = lambda: fs.finish_plain(s_, b, bf, resid=x)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = max_err(out, ref)
+        n = s_.numel()
+        b_ms, b_by = bound(n * (4 + 2 + 2) + G * C * 4, 2 * n, PEAK_FP32)
+        rows.append(ratios(dict(
+            kernel="K1/K2 finish", shape=f"finishing pass {site} G={G} rows={Bn * N_tok} C={C} "
+                                         f"(+ residual)",
+            max_abs_err=err, max_rel_err=rel, tol="bits", ok=torch.equal(out, ref),
+            same_bits=torch.equal(out, ref), ms=graph_time(kern, 20),
+            ms_eager=cuda_time(kern, 20), plain_ms=cuda_time(plain, 5), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)))
+        del s_, x, out, ref
+    for name, rws, C, Hh in (("encoder m=4", 16, 256, 4), ("decoder m=4", 64, 192, 3)):
+        row = check_site_attention(dev, gen, name, rws, N_tok, C, Hh)
+        row["kernel"] = "K1 tp"
+        rows.append(row)
     return rows
 
 
@@ -1571,19 +1767,19 @@ def dp_engine_rank() -> int:
     return 0
 
 
-def _launch_ranks(argv, log_dir, tag, timeout=600):
-    """DDP_RANKS processes of argv on the one card (tcp:// on localhost;
-    more ranks than cards, so maybe_init_distributed picks gloo); their
-    outputs are kept under log_dir. Fails on a non-zero exit."""
+def _launch_ranks(argv, log_dir, tag, n=DDP_RANKS, timeout=600):
+    """n processes of argv on the one card (tcp:// on localhost; more ranks
+    than cards, so maybe_init_distributed picks gloo); their outputs are kept
+    under log_dir. Fails on a non-zero exit."""
     import socket
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
     env = dict(os.environ, ALIGN3R_COORDINATOR=f"localhost:{port}",
-               ALIGN3R_NUM_PROCESSES=str(DDP_RANKS), PYTHONPATH=HERE)
-    logs = [os.path.join(log_dir, f"{tag}.rank{r}.log") for r in range(DDP_RANKS)]
+               ALIGN3R_NUM_PROCESSES=str(n), PYTHONPATH=HERE)
+    logs = [os.path.join(log_dir, f"{tag}.rank{r}.log") for r in range(n)]
     procs = []
-    for r in range(DDP_RANKS):
+    for r in range(n):
         with open(logs[r], "w") as f:
             procs.append(subprocess.Popen(argv, cwd=HERE, stdout=f, stderr=subprocess.STDOUT,
                                           env=dict(env, ALIGN3R_PROCESS_ID=str(r))))
@@ -1744,6 +1940,184 @@ def ddp_path(dev, card):
     if not all(checks.values()):
         raise AssertionError(f"ddp path checks failed: {checks}")
     return counts["cosine"], stats
+
+
+def _tp_counters():
+    from align3r_tpu_torch.ops import fused_site as fs
+    return {"attention_site": fs.attention_site, "mlp_site": fs.mlp_site, "gemm": fs.gemm,
+            "finish": fs.finish, "layernorm": fs._ln_cuda}
+
+
+def tp_engine_rank() -> int:
+    """One rank of the tp phase (chip_smoke.py --tp-engine-rank, ALIGN3R_*
+    variables set, TP_RANKS ranks): seeded VIT_L_512 in bf16; rank 0 runs one
+    rank's inference on main's first TP_FRAMES frames (swinstride-5
+    symmetrised, batch TP_BATCH). Then for each layout of TP_LAYOUTS every
+    rank splits the weights (shard_prepared), runs inference(mesh=make_mesh(
+    n_data, n_model)) with the counters zeroed just before it and read just
+    after, and prints TP_RANK {json}: its K1, K2, GEMM-core, finishing-pass
+    and LayerNorm launches, its split block weights' bytes against one rank's,
+    its peak device memory and the run's seconds (gloo stages every
+    all-reduce through the host: plumbing, not speed). Then every model group
+    runs the first encoder block, decoder layer and prior-branch block on its
+    shares, and rank 0 holds them and the engine's pred1 / pred2 against one
+    rank's whole blocks and output: TP_ENGINE {json}."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+    from align3r_tpu_torch.inference.engine import inference
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    from align3r_tpu_torch.models import blocks as B
+    from align3r_tpu_torch.models.rope import make_grid_positions
+    from align3r_tpu_torch.parallel.mesh import make_mesh, maybe_init_distributed, rank
+    from align3r_tpu_torch.parallel.shardings import block_bytes, shard_prepared
+
+    assert maybe_init_distributed()
+    dev = torch.device("cuda", 0)
+    me = rank()
+    pm = seeded_vit_l(dev)
+    cfg, rb = pm.cfg, pm.cfg.effective_rope_base
+    imgs, priors = (t[:TP_FRAMES] for t in synthetic_video(0))
+    pairs = make_pairs(TP_FRAMES, "swinstride-5-noncyclic", symmetrize=True)
+    ref = first = None
+    if me == 0:
+        t0 = time.perf_counter()
+        ref = inference(pairs, pm, imgs, priors, batch_size=TP_BATCH, encode_chunk=TP_BATCH)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        first = (pm.enc_blocks[0], pm.dec_layers[0], pm.pc_blocks[0])
+    whole_bytes = block_bytes(pm)
+    meshes = [make_mesh(nd, nm) for nd, nm in TP_LAYOUTS]
+    shares = [shard_prepared(pm, mesh.n_model, mesh.model_rank) for mesh in meshes]
+    del pm
+    torch.cuda.empty_cache()
+    # the first blocks' inputs: main's first frames' patch tokens, and seeded
+    # decoder streams
+    pos = make_grid_positions(H // 16, W // 16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x_enc = B.apply_patch_embed(*shares[0].patch_embed, torch.as_tensor(
+        imgs, device=dev).to(torch.bfloat16), 16)[None]
+    x_dec = torch.randn(2, TP_FRAMES, pos.shape[0], cfg.dec_embed_dim, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    x_pc = x_dec[:1]
+    engine = {"one_rank_s": one_s} if me == 0 else {}
+    for (nd, nm), mesh, share in zip(TP_LAYOUTS, meshes, shares):
+        counters = _tp_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = inference(pairs, share, imgs, priors, batch_size=TP_BATCH, encode_chunk=TP_BATCH,
+                        mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        print("TP_RANK " + json.dumps({
+            "layout": f"{nd}x{nm}", "rank": me, "data_rank": mesh.data_rank,
+            "model_rank": mesh.model_rank, "launches": launches,
+            "block_bytes": block_bytes(share), "block_bytes_one_rank": whole_bytes,
+            "block_bytes_share": block_bytes(share) / whole_bytes,
+            "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "s_plumbing": secs}), flush=True)
+        g = mesh.model_group
+        blocks = (B.apply_block_prepared(share.enc_blocks[0], x_enc, pos, cfg.enc_num_heads, rb,
+                                         g),
+                  B.apply_decoder_layer_prepared(share.dec_layers[0], x_dec, pos,
+                                                 cfg.dec_num_heads, rb, g),
+                  B.apply_block_prepared(share.pc_blocks[0], x_pc, pos, cfg.dec_num_heads, rb, g))
+        torch.cuda.synchronize()
+        if me == 0:
+            whole = (B.apply_block_prepared(first[0], x_enc, pos, cfg.enc_num_heads, rb),
+                     B.apply_decoder_layer_prepared(first[1], x_dec, pos, cfg.dec_num_heads, rb),
+                     B.apply_block_prepared(first[2], x_pc, pos, cfg.dec_num_heads, rb))
+            res = {}
+            for name, a, b in zip(("encoder block 0", "decoder layer 0", "prior block 0"),
+                                  blocks, whole):
+                d = (a.float() - b.float()).abs()
+                res[name] = {"median_rel": _rel_diff(a.float().cpu(), b.float().cpu()),
+                             "max_abs_over_max": (d.max() / b.float().abs().max()).item(),
+                             "differ": (a != b).float().mean().item()}
+            for k in ("pred1", "pred2"):
+                for v, r in ref[k].items():
+                    o = out[k][v]
+                    res[f"{k}.{v}"] = {
+                        "median_rel": _rel_diff(o.cpu(), r.cpu()),
+                        "max_abs_over_max": ((o - r).abs().max() / r.abs().max()).item(),
+                        "finite": bool(torch.isfinite(o).all())}
+            engine[f"{nd}x{nm}"] = res
+        del out, blocks
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if me == 0:
+        print("TP_ENGINE " + json.dumps(engine), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_path(dev, card):
+    """Tensor-parallel serving on the one card (see the module docstring):
+    the drift of a 4-way split against the whole network, layer by layer
+    (tools/tp_drift.py, in this process), then TP_RANKS gloo ranks of
+    tp_engine_rank. Checks: every rank launched K1, K2, the GEMM core, the
+    finishing pass and the LayerNorm in each layout; its split block weights
+    are at most 1.1 / m of one rank's; the first blocks are within
+    TP_BLOCK_TOL median relative and 2 bf16 ulps of the largest value of one
+    rank's; the engine's conf within TP_CONF_TOL and pts3d within TP_PTS_TOL
+    median relative, every value finite."""
+    import shutil
+    import torch
+    from align3r_tpu_torch.tools import tp_drift
+
+    phase_t0 = time.perf_counter()
+    root = os.path.join(HERE, "build", "tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    pm = tp_drift.seeded_model(dev)
+    drift = tp_drift.drift(pm, n_model=4, grid=(H // 16, W // 16), frames=TP_FRAMES)
+    del pm
+    torch.cuda.empty_cache()
+    print("tp: drift of the 4-way split against the whole network, per layer "
+          + json.dumps(drift), flush=True)
+    outs = _launch_ranks([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                          "--tp-engine-rank"], root, "tp", n=TP_RANKS)
+    ranks = [json.loads(ln[len("TP_RANK "):]) for o in outs for ln in o.splitlines()
+             if ln.startswith("TP_RANK ")]
+    engine = json.loads(next(ln for ln in outs[0].splitlines()
+                             if ln.startswith("TP_ENGINE "))[len("TP_ENGINE "):])
+    for r in ranks:
+        print("tp: rank " + json.dumps(r), flush=True)
+    print("tp: against one rank " + json.dumps(engine), flush=True)
+    m_of = {f"{nd}x{nm}": nm for nd, nm in TP_LAYOUTS}
+    checks = {
+        "every_rank_every_layout": len(ranks) == TP_RANKS * len(TP_LAYOUTS),
+        "launches_above_0": all(v > 0 for r in ranks for v in r["launches"].values()),
+        "block_bytes_about_1_over_m": all(
+            r["block_bytes_share"] <= 1.1 / m_of[r["layout"]] for r in ranks)}
+    for lay in m_of:
+        res = engine[lay]
+        for name, v in res.items():
+            if name.startswith(("encoder", "decoder", "prior")):
+                checks[f"{lay} {name}"] = (v["median_rel"] <= TP_BLOCK_TOL
+                                          and v["max_abs_over_max"] <= 1.6e-2)
+            else:
+                tol = TP_CONF_TOL if name.endswith("conf") else TP_PTS_TOL
+                checks[f"{lay} {name}"] = v["median_rel"] <= tol and v["finite"]
+    launches = {}
+    for r in ranks:
+        if r["rank"] == 0:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    stats = {"card": card, "drift": drift, "ranks": ranks, "against_one_rank": engine,
+             "launches_rank0": launches, "phase_s": time.perf_counter() - phase_t0}
+    print(f"tp: checks {json.dumps(checks)}", flush=True)
+    print(f"tp: {TP_RANKS} ranks, layouts {TP_LAYOUTS}, {stats['phase_s']:.1f} s "
+          f"(gloo: plumbing, not speed); {card}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"tp path checks failed: {checks}")
+    return launches, stats
 
 
 # ----------------------------------------------------------------- phase 6
@@ -3103,7 +3477,7 @@ def main() -> int:
                 + check_edge_scenes(dev, gen) + check_k5(dev, gen)
                 + [r for n, g in DEMO_GRAPHS for r in check_k5(dev, gen, n, g, timed=False)]
                 + check_k7(dev, gen) + check_k8(dev, gen) + check_k9(dev, gen)
-                + check_sam2_attention(dev, gen))
+                + check_sam2_attention(dev, gen) + check_tp_kernels(dev, gen))
         for r in rows:
             print("kernels: " + json.dumps(r), flush=True)
         bad = [r for r in rows if not r["ok"]]
@@ -3171,6 +3545,10 @@ def main() -> int:
         cosine_launches, ddp_stats = ddp_path(dev, card)
         torch.cuda.empty_cache()
 
+        phase = "tp"
+        tp_launches, tp_stats = tp_path(dev, card)
+        torch.cuda.empty_cache()
+
         phase = "long"
         print("long: K9 gradient " + json.dumps(check_k9_grad(dev, gen)), flush=True)
         torch.cuda.empty_cache()
@@ -3225,6 +3603,9 @@ def main() -> int:
                     "align3r_tpu/ops/attention.py:44"),
         "K6 fp32": ("small_attention", src + "small_attention.cu",
                     "align3r_tpu/ops/small_attention.py:47"),
+        "K1 tp": ("attention_partial", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:78"),
+        "K2 tp": ("mlp_partial", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:242"),
+        "K1/K2 finish": ("finish", src + "fused_site.cu", "align3r_tpu/ops/fused_site.py:78"),
     }
     # the path(s) each kernel's launches were counted on
     paths = {"K5": {"flow": flow_launches},
@@ -3234,7 +3615,10 @@ def main() -> int:
              "K8": {"heads": heads_launches}, "K8 fp32": {"heads": heads_launches},
              "K9": {"long": long_launches}, "K9 bwd": {"long": long_launches},
              "K9 fp32": {"prior": prior_launches, "sam2": sam2_launches},
-             "K6 fp32": {"sam2": sam2_launches}}
+             "K6 fp32": {"sam2": sam2_launches},
+             "K1 tp": {"tp": {"attention_partial": tp_launches["attention_site"]}},
+             "K2 tp": {"tp": {"mlp_partial": tp_launches["mlp_site"]}},
+             "K1/K2 finish": {"tp": tp_launches}}
     kernels = []
     for k, (fn, source, replaces) in meta.items():
         # the headline row is the first of its path's rows (K9 fp32: the
@@ -3267,7 +3651,7 @@ def main() -> int:
                       "heads_path": heads_stats,
                       "demo_path": demo_stats, "prior_path": prior_stats,
                       "long_path": long_stats, "batch_path": batch_stats,
-                      "ddp_path": ddp_stats}), flush=True)
+                      "ddp_path": ddp_stats, "tp_path": tp_stats}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3277,4 +3661,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--dp-engine-rank"]:
         sys.exit(dp_engine_rank())
+    if sys.argv[1:] == ["--tp-engine-rank"]:
+        sys.exit(tp_engine_rank())
     sys.exit(main())

@@ -28,7 +28,10 @@ launch, K6's bits on the same heads laid out per head; for K1/K2's GEMM
 launch (gemm.cuh), every epilogue at 135 rows over G = 2 and at the main
 path's shapes, K = 4096 (the ring wraps many times), N = 128 (one tile) and
 3072, grids of fewer tiles than SMs (a single row, K = 64), two launches
-that give the same bits, and the inputs it refuses; for K7 and K8, pixel counts that are not a multiple of
+that give the same bits, and the inputs it refuses, N % 128 == 64 (a 64-wide last tile) at the bias and
+RoPE epilogues and the fp32 partial epilogue of the tensor-parallel sites; the finishing
+pass bit for bit, and one rank's share of K1 and K2 against its plain version
+and, summed over the ranks and finished, against the whole site; for K7 and K8, pixel counts that are not a multiple of
 the 128-pixel conv tile, K7 at each refinenet level's width (128, 64, 32,
 16) with a ragged height, K8 at widths that are not a multiple of the
 box width, that the bf16 convs launch the sm90 conv kernels and the fp32
@@ -175,6 +178,124 @@ def test_gemm_kernel_is_deterministic(dev):
     y = fs.gemm(a, w, bias, fs.EPI_RESID, resid=resid)
     torch.cuda.synchronize()
     assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(2, 135, 192, 128), (1, 9216, 256, 1024),
+                                   (2, 18432, 192, 768), (1, 1, 64, 64), (3, 129, 320, 192)])
+@pytest.mark.parametrize("epi", ["bias", "rope"])
+def test_gemm_kernel_n_tail(dev, shape, epi):
+    """N % 128 == 64: the last tile of a row of tiles is 64 wide (its second
+    W box repeats the first, its bias slice and stores cover 64 columns); the
+    bias and RoPE epilogues (a split site's q/k/v) against gemm_plain, at the
+    decoder's 192-wide products of a rank of four (and the encoder's 256, a
+    whole tile), a ragged row count over two and three streams, and a single
+    64-column tile. GELU and the residual take N % 128 == 0 only, and refuse
+    N % 128 == 64."""
+    G, M, N, K = shape
+    a, w, bias, resid, cos, sin = _gemm_inputs(dev, G, M, N, K, 24)
+    e = fs.EPI_ROPE if epi == "rope" else fs.EPI_BIAS
+    kw = dict(cos=cos, sin=sin, rope_d=64, rope_n=576) if epi == "rope" else {}
+    out = fs.gemm(a, w, bias, e, **kw)
+    ref = fs.gemm_plain(a, w, bias, e, **kw)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+    if N % 128:
+        with pytest.raises(ValueError):
+            fs.gemm(a, w, bias, fs.EPI_GELU)
+        with pytest.raises(ValueError):
+            fs.gemm(a, w, bias, fs.EPI_RESID, resid=resid)
+
+
+@pytest.mark.parametrize("shape", [(1, 9216, 1024, 256), (2, 18432, 768, 192),
+                                   (1, 9216, 1024, 1024), (2, 135, 768, 1536),
+                                   (3, 129, 192, 64)])
+def test_gemm_partial_epilogue(dev, shape):
+    """EPI_PARTIAL: the fp32 product without bias, at the out-projection and
+    fc2 of a rank of four, ragged rows and N % 128 == 64, against gemm_plain
+    within 1e-4 of the largest value (fp32 sums in another order); two
+    launches give the same bits; at N % 128 == 0 the bf16 epilogues are
+    untouched (test_gemm_kernel)."""
+    G, M, N, K = shape
+    a, w, _, _, _, _ = _gemm_inputs(dev, G, M, N, K, 25)
+    out = fs.gemm(a, w, None, fs.EPI_PARTIAL)
+    again = fs.gemm(a, w, None, fs.EPI_PARTIAL)
+    ref = fs.gemm_plain(a, w, None, fs.EPI_PARTIAL)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (G, M, N) and torch.equal(out, again)
+    assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("resid", [True, False])
+@pytest.mark.parametrize("shape", [(1, 16, 576, 1024), (2, 3, 45, 768), (1, 1, 1, 8)])
+def test_finish_kernel(dev, shape, resid):
+    """The finishing pass against finish_plain bit for bit: the same fp32 add
+    and the same roundings to bf16."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    G, C = shape[0], shape[-1]
+    s = torch.randn(*shape, generator=g, device=dev) * 3
+    b = torch.randn(G, C, generator=g, device=dev)
+    x = torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16) if resid else None
+    before = fs.finish.launches
+    out = fs.finish(s, b, torch.bfloat16, resid=x)
+    assert fs.finish.launches == before + 1
+    assert torch.equal(out, fs.finish_plain(s, b, torch.bfloat16, resid=x))
+    with pytest.raises(ValueError):
+        fs.finish(s[..., :4], b[:, :4], torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["self", "cross", "mlp"])
+@pytest.mark.parametrize("C,H,m", [(1024, 16, 4), (768, 12, 4), (768, 12, 2)])
+def test_split_sites_kernel(dev, kind, C, H, m):
+    """One rank's share of K1 (H / m heads: 4 at C = 1024, 3 and 6 at 768) and
+    of K2 (F / m hidden units) on the card, ending in the fp32 partial,
+    against site_plain / mlp_plain with no bias (2 bf16 ulps of the largest
+    value); the m ranks' partials, finished, against the whole site (4 bf16
+    ulps: the whole and the split product round their sums differently)."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    G, B = 2, 2
+    pos = make_grid_positions(9, 16, device=dev)
+    N = pos.shape[0]
+    rnd = lambda *s, sc=1.0, dt=torch.bfloat16: (torch.randn(*s, generator=g, device=dev) * sc).to(dt)
+    x = rnd(G, B, N, C)
+    ln = (1 + rnd(G, C, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32))
+    if kind == "mlp":
+        F = 4 * C
+        w1, w2 = rnd(G, C, F, sc=C ** -0.5), rnd(G, F, C, sc=F ** -0.5)
+        b1, b2 = rnd(G, F, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32)
+        whole = fs.mlp_site(x, w1, b1, w2, b2, ln=ln, residual=True)
+        parts = []
+        for r in range(m):
+            sl = slice(r * F // m, (r + 1) * F // m)
+            before = fs.mlp_site.launches
+            p = fs.mlp_partial(x, w1[..., sl], b1[..., sl], w2[:, sl], ln=ln)
+            assert fs.mlp_site.launches == before + 1
+            _bf16_close(p, fs.mlp_plain(x, w1[..., sl], b1[..., sl], w2[:, sl], None, ln=ln))
+            parts.append(p)
+        bias = b2
+    else:
+        kv = rnd(G, B, N, C) if kind == "cross" else x
+        w = [rnd(G, C, C, sc=C ** -0.5) for _ in range(4)]
+        b = [rnd(G, C, sc=0.1, dt=torch.float32) for _ in range(4)]
+        ln_kv = (1 + rnd(G, C, sc=0.1, dt=torch.float32), rnd(G, C, sc=0.1, dt=torch.float32)) \
+            if kind == "cross" else "same"
+        whole = fs.attention_site(x, kv, *w, *b, pos, H, 100.0, ln_q=ln, ln_kv=ln_kv,
+                                  residual=True)
+        cos, sin = fs.site_tables(pos, 64, 100.0, torch.bfloat16)
+        parts = []
+        for r in range(m):
+            sl = slice(r * C // m, (r + 1) * C // m)
+            qkv = [t[..., sl] for t in w[:3]] + [w[3][:, sl]] + [t[..., sl] for t in b[:3]]
+            before = fs.attention_site.launches
+            p = fs.attention_partial(x, kv, *qkv, pos, H // m, 100.0, ln_q=ln, ln_kv=ln_kv)
+            assert fs.attention_site.launches == before + 1
+            _bf16_close(p, fs.site_plain(x, kv, *qkv[:4], *qkv[4:], None, cos, sin, H // m,
+                                         ln_q=ln, ln_kv=ln_kv))
+            parts.append(p)
+        bias = b[3]
+    out = fs.finish(sum(parts), bias, torch.bfloat16, resid=x)
+    torch.cuda.synchronize()
+    d = (out.float() - whole.float()).abs().max().item()
+    assert d <= 3.2e-2 * whole.float().abs().max().item(), d
 
 
 def test_gemm_refuses_unsupported(dev):

@@ -50,7 +50,8 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "tools.depth_test", "tools.pose_test", "models.sam2", "models.sam2_video",
         "models.sam2_refine", "utils.jpeg", "training.data.base", "training.data.cropping",
         "training.data.datasets", "tools.train", "alignment.batched", "models.linear_head",
-        "parallel.mesh", "tools.dist_smoke", "tools.serve_scene")} <= names
+        "parallel.mesh", "tools.dist_smoke", "tools.serve_scene", "parallel.shardings",
+        "tools.tp_drift")} <= names
 
 
 MODEL_STRINGS = [
