@@ -1,13 +1,13 @@
-"""Host-side MST initialisation for the global aligner (port of
+"""MST initialisation for the global aligner (port of
 align3r_tpu/alignment/init_poses.py).
 
 The graph walk (scipy minimum spanning tree + greedy propagation) runs on the
-host in numpy; the per-edge rigid registrations and focal estimates are torch
-on CPU tensors. ``fast_pnp`` is a numpy RANSAC-PnP (no OpenCV): a seeded
-sampler, a DLT pose refined by Gauss-Newton from each minimal sample (plus
-one hypothesis from all points), a 5 px inlier threshold, the same focal
-sweep and iteration count as the reference's cv2 call, and a final
-refinement on the inliers.
+host in numpy; the per-edge rigid registrations, the Weiszfeld focals and the
+point transforms are torch on the scene's device, as the JAX package's are
+jnp. The frames the walk leaves without a pose go into one batched
+RANSAC-PnP on that device (`alignment.pnp.ransac_pnp`), the computation of
+the JAX package's cv2.solvePnPRansac(SQPNP); `fast_pnp` is its one-problem
+call.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import scipy.sparse as sp
 import scipy.sparse.csgraph  # noqa: F401  (registers sp.csgraph)
 import torch
 
+from align3r_tpu_torch.alignment.pnp import MIN_PNP_POINTS, ransac_pnp
 from align3r_tpu_torch.alignment.scene import (SceneConfig, SceneData,
                                                set_depthmap, set_focal)
 from align3r_tpu_torch.geometry.core import geotrf, xy_grid
@@ -25,244 +26,77 @@ from align3r_tpu_torch.geometry.poses import (matrix_to_pose_vec,
                                               rigid_points_registration)
 
 
-def estimate_focal_weiszfeld(pts3d, pp=None, min_focal: float = 0.0,
-                             max_focal: float = np.inf, n_iter: int = 10):
-    """Weiszfeld focal from a camera-frame pointmap (H, W, 3)."""
-    pts3d = torch.as_tensor(np.asarray(pts3d), dtype=torch.float32)
-    if pts3d.ndim != 3:
+def estimate_focals_weiszfeld(pts3d, pp=None, min_focal: float = 0.0,
+                              max_focal: float = np.inf, n_iter: int = 10):
+    """Weiszfeld focals of camera-frame pointmaps (..., H, W, 3), batched on
+    their device: a float32 tensor of the leading shape."""
+    pts3d = torch.as_tensor(pts3d).float()
+    if pts3d.ndim < 3:
         raise ValueError("need (H, W, 3) to build the pixel grid")
-    H, W = pts3d.shape[:2]
-    pts = pts3d.reshape(-1, 3)
+    H, W = pts3d.shape[-3:-1]
+    pts = pts3d.reshape(*pts3d.shape[:-3], H * W, 3)
     if pp is None:
         pp = torch.tensor([W / 2, H / 2], dtype=torch.float32)
-    pixels = xy_grid(W, H).reshape(-1, 2) - pp[None]
-    z = pts[:, 2:3]
-    xy_over_z = pts[:, :2] / torch.clamp(torch.abs(z), min=1e-8) * torch.sign(z)
+    pixels = (xy_grid(W, H, device=pts.device).reshape(-1, 2)
+              - torch.as_tensor(pp, dtype=torch.float32, device=pts.device))
+    z = pts[..., 2:3]
+    xy_over_z = pts[..., :2] / torch.clamp(torch.abs(z), min=1e-8) * torch.sign(z)
     xy_over_z = torch.nan_to_num(xy_over_z, posinf=0.0, neginf=0.0)
     dot_xy_px = (xy_over_z * pixels).sum(-1)
     dot_xy_xy = (xy_over_z ** 2).sum(-1)
-    focal = dot_xy_px.mean() / torch.clamp(dot_xy_xy.mean(), min=1e-12)
+    focal = dot_xy_px.mean(-1) / torch.clamp(dot_xy_xy.mean(-1), min=1e-12)
     for _ in range(n_iter):
-        dis = torch.linalg.vector_norm(pixels - focal * xy_over_z, dim=-1)
+        dis = torch.linalg.vector_norm(pixels - focal[..., None, None] * xy_over_z, dim=-1)
         w = 1.0 / torch.clamp(dis, min=1e-8)
-        focal = (w * dot_xy_px).mean() / torch.clamp((w * dot_xy_xy).mean(), min=1e-12)
+        focal = (w * dot_xy_px).mean(-1) / torch.clamp((w * dot_xy_xy).mean(-1), min=1e-12)
     base = max(H, W) / (2 * np.tan(np.deg2rad(60) / 2))
     lo = max(min_focal * base, 1e-4)
-    return float(torch.clamp(focal, lo, max_focal * base))
+    return torch.clamp(focal, lo, max_focal * base)
+
+
+def estimate_focal_weiszfeld(pts3d, pp=None, min_focal: float = 0.0,
+                             max_focal: float = np.inf, n_iter: int = 10):
+    """Weiszfeld focal from a camera-frame pointmap (H, W, 3)."""
+    if torch.as_tensor(pts3d).ndim != 3:
+        raise ValueError("need (H, W, 3) to build the pixel grid")
+    return float(estimate_focals_weiszfeld(pts3d, pp, min_focal, max_focal, n_iter))
 
 
 def _srt_to_4x4(s, R, t):
-    T = np.eye(4, dtype=np.float32)
-    T[:3, :3] = np.asarray(R) * s
-    T[:3, 3] = np.asarray(t).ravel()
+    T = torch.eye(4, dtype=torch.float32, device=R.device)
+    T[:3, :3] = R * s
+    T[:3, 3] = t.reshape(-1)
     return T
 
 
-def _dlt_pose(X, xn):
-    """World->camera [R | t] from >= 6 points X (m, 3) and normalised image
-    coordinates xn (m, 2) by the direct linear transform, with R projected
-    onto SO(3) and the scale and sign fixed (points in front). Both point
-    sets are Hartley-normalised (centred, mean distance sqrt(3) / sqrt(2))
-    before the SVD, which keeps the system well conditioned."""
-    m = X.shape[0]
-    mx = X.mean(0)
-    sx = np.sqrt(3) / max(np.linalg.norm(X - mx, axis=1).mean(), 1e-12)
-    mu = xn.mean(0)
-    su = np.sqrt(2) / max(np.linalg.norm(xn - mu, axis=1).mean(), 1e-12)
-    T3 = np.diag([sx, sx, sx, 1.0])
-    T3[:3, 3] = -sx * mx
-    T2 = np.diag([su, su, 1.0])
-    T2[:2, 2] = -su * mu
-    Xh = np.concatenate([(X - mx) * sx, np.ones((m, 1))], axis=1)
-    un = (xn - mu) * su
-    A = np.zeros((2 * m, 12))
-    A[0::2, 0:4] = Xh
-    A[0::2, 8:12] = -un[:, 0:1] * Xh
-    A[1::2, 4:8] = Xh
-    A[1::2, 8:12] = -un[:, 1:2] * Xh
-    # null vector of A: the eigenvector of A^T A with the smallest eigenvalue
-    P = np.linalg.eigh(A.T @ A)[1][:, 0].reshape(3, 4)
-    P = np.linalg.inv(T2) @ P @ T3
-    if np.median(Xh[:, :3] / sx @ P[2, :3] + P[2] @ np.r_[mx, 1.0]) < 0:
-        P = -P                                    # points in front
-    U, S, Vt = np.linalg.svd(P[:, :3])
-    if S.mean() <= 0:
-        return None
-    R = U @ np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))]) @ Vt
-    return R, P[:, 3] / S.mean()
+def _focal_sweep(W: int, H: int) -> np.ndarray:
+    """The focals the JAX package tries for a view without one."""
+    return np.geomspace(max(W, H) / 2, max(W, H) * 3, 21)
 
 
-def _kabsch(P, C):
-    """The rotation and translation taking points P (m, 3) onto C (m, 3)."""
-    pc, cc = P.mean(0), C.mean(0)
-    U, _, Vt = np.linalg.svd((P - pc).T @ (C - cc))
-    R = Vt.T @ np.diag([1.0, 1.0, np.sign(np.linalg.det(Vt.T @ U.T))]) @ U.T
-    return R, cc - R @ pc
-
-
-def _p3p(X, xn):
-    """World->camera poses [R | t] that put 3 points X (3, 3) on the rays
-    of the normalised image points xn (3, 2): Grunert's system. With d2 =
-    u d1, d3 = v d1 the distances along the unit rays j1..j3, the law of
-    cosines over the sides a = |X2 - X3|, b = |X1 - X3|, c = |X1 - X2| gives
-    two quadratics in u whose coefficients are polynomials in v; their
-    resultant is a quartic in v (scaled so that b = 1), each positive real
-    root gives u from their difference, then the camera-frame points and
-    the rigid fit. Up to four poses."""
-    from numpy.polynomial import polynomial as P
-    j = np.concatenate([xn, np.ones((3, 1))], axis=1)
-    j /= np.linalg.norm(j, axis=1, keepdims=True)
-    b = np.linalg.norm(X[0] - X[2])
-    if b < 1e-12:
-        return []
-    a, c = np.linalg.norm(X[1] - X[2]) / b, np.linalg.norm(X[0] - X[1]) / b
-    ca, cb, cg = j[1] @ j[2], j[0] @ j[2], j[0] @ j[1]
-    # b^2 u^2 + p1 u + p0 = 0 and b^2 u^2 + q1 u + q0 = 0 (b = 1)
-    p1, p0 = np.array([0.0, -2 * ca]), np.array([-a * a, 2 * a * a * cb, 1 - a * a])
-    q1, q0 = np.array([-2 * cg]), np.array([1 - c * c, 2 * c * c * cb, -c * c])
-    res = P.polysub(P.polymul(P.polysub(q0, p0), P.polysub(q0, p0)),
-                    P.polymul(P.polysub(q1, p1), P.polysub(P.polymul(p1, q0),
-                                                          P.polymul(q1, p0))))
-    poses = []
-    for v in P.polyroots(res):
-        if abs(v.imag) > 1e-6 * max(1.0, abs(v)) or v.real <= 0:
-            continue
-        v = v.real
-        den = P.polyval(v, P.polysub(p1, q1))
-        if abs(den) < 1e-12:
-            continue
-        u = (P.polyval(v, q0) - P.polyval(v, p0)) / den
-        s2 = 1 + v * v - 2 * v * cb
-        if u <= 0 or s2 <= 0:
-            continue
-        d1 = b / np.sqrt(s2)
-        poses.append(_kabsch(X, np.array([d1, u * d1, v * d1])[:, None] * j))
-    return poses
-
-
-def _minimal_pose(X, xn):
-    """World->camera [R | t] from m >= 4 points: the DLT from 6 or more;
-    from 4 or 5, the P3P pose of the first three that puts the others
-    nearest their image points (None if none has every point in front)."""
-    if len(X) >= 6:
-        return _dlt_pose(X, xn)
-    best, best_err = None, np.inf
-    for R, t in _p3p(X[:3], xn[:3]):
-        cam = X @ R.T + t
-        if (cam[:, 2] <= 1e-9).any():
-            continue
-        err = np.linalg.norm(cam[:, :2] / cam[:, 2:] - xn, axis=1).sum()
-        if err < best_err:
-            best, best_err = (R, t), err
-    return best
-
-
-def _skew(v):
-    return np.array([[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]])
-
-
-def _refine_pose(R, t, X, pixels, f, pp, iters: int = 10):
-    """Gauss-Newton on the reprojection error (rotation by left-multiplied
-    Rodrigues updates), as the reference's PnP ends with an LM refinement."""
-    pp = np.asarray(pp, np.float64)
-    for _ in range(iters):
-        RX = X @ R.T
-        cam = RX + t
-        z = cam[:, 2:3]
-        if (z <= 1e-9).any():
-            break
-        r = (f * cam[:, :2] / z + pp - pixels).reshape(-1)
-        dp = np.zeros((len(X), 2, 3))
-        dp[:, 0, 0] = f / z[:, 0]
-        dp[:, 1, 1] = f / z[:, 0]
-        dp[:, :, 2] = -f * cam[:, :2] / z ** 2
-        dcam_dw = np.zeros((len(X), 3, 3))                   # -skew(RX)
-        dcam_dw[:, 0, 1], dcam_dw[:, 0, 2] = RX[:, 2], -RX[:, 1]
-        dcam_dw[:, 1, 0], dcam_dw[:, 1, 2] = -RX[:, 2], RX[:, 0]
-        dcam_dw[:, 2, 0], dcam_dw[:, 2, 1] = RX[:, 1], -RX[:, 0]
-        J = np.concatenate([dp @ dcam_dw, dp], axis=2).reshape(-1, 6)
-        delta = np.linalg.lstsq(J, -r, rcond=None)[0]
-        w = delta[:3]
-        th = np.linalg.norm(w)
-        K = _skew(w / th) if th > 0 else np.zeros((3, 3))
-        dR = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
-        R, t = dR @ R, dR @ t + delta[3:]
-        if np.abs(delta).max() < 1e-12:
-            break
-    return R, t
-
-
-MIN_PNP_POINTS = 4   # the reference's (and cv2's) minimum for a pose
-
-
-def fast_pnp(pts3d: np.ndarray, focal: Optional[float], msk: np.ndarray,
-             pp=None, niter_PnP: int = 10, seed: int = 0):
-    """RANSAC-PnP pose recovery (reference init_im_poses.py:442-482).
-    Returns (focal, cam2world 4x4) or None."""
-    if msk.sum() < MIN_PNP_POINTS:
-        return None
+def fast_pnp(pts3d, focal: Optional[float], msk, pp=None, niter_PnP: int = 10):
+    """RANSAC-PnP pose recovery (reference init_im_poses.py:442-482) on the
+    device of pts3d (H, W, 3): the one-problem call of `ransac_pnp`. Without a
+    focal it sweeps `_focal_sweep`, as the JAX package does. Returns (focal,
+    cam2world 4x4 float32 numpy) or None."""
+    pts3d = torch.as_tensor(pts3d)
     H, W, _ = pts3d.shape
-    u, v = np.meshgrid(np.arange(W), np.arange(H))
-    pixels = np.stack([u, v], axis=-1).astype(np.float64)[msk]
-    X = pts3d[msk].astype(np.float64)
-    if pp is None:
-        pp = (W / 2, H / 2)
-    focals = ([focal] if focal is not None
-              else np.geomspace(max(W, H) / 2, max(W, H) * 3, 21))
-    rng = np.random.default_rng(seed)
-    best = (0,)
-    for f in focals:
-        xn = (pixels - np.asarray(pp, np.float64)) / f
-        f_best = (0,)
-        # niter_PnP minimal samples (6 points for the DLT, else 4), plus one
-        # hypothesis fitted to every masked point (a 6-point DLT is
-        # ill-conditioned on narrow views)
-        samples = [rng.choice(len(X), size=6 if len(X) >= 6 else 4, replace=False)
-                   for _ in range(niter_PnP)] + [np.arange(len(X))]
-        for sample in samples:
-            pose = _minimal_pose(X[sample], xn[sample])
-            if pose is None:
-                continue
-            R, t = _refine_pose(*pose, X[sample], pixels[sample], f, pp)
-            cam = X @ R.T + t
-            z = cam[:, 2]
-            ok = z > 1e-9
-            proj = f * cam[:, :2] / np.where(ok, z, 1.0)[:, None] + np.asarray(pp)
-            err = np.linalg.norm(proj - pixels, axis=1)
-            inl = ok & (err < 5.0)
-            if inl.sum() > f_best[0]:
-                f_best = (int(inl.sum()), inl, R, t)
-        if f_best[0] >= MIN_PNP_POINTS and f_best[0] > best[0]:
-            inl = f_best[1]
-            pose = _minimal_pose(X[inl], xn[inl])
-            if pose is not None:
-                # at a focal near zero every point projects to the principal
-                # point whatever the pose, and a DLT can put the camera ~1e27
-                # away (an inf loss downstream; cv2's SQPNP stays bounded):
-                # take the inliers' refit, else the RANSAC hypothesis, if its
-                # translation is bounded; else this focal gives no pose
-                refit = _refine_pose(*pose, X[inl], pixels[inl], f, pp)
-                for R, t in (refit, f_best[2:]):
-                    if np.abs(t).max() <= 1e6 * np.abs(X).max():
-                        best = (f_best[0], R, t, f)
-                        break
-    if not best[0]:
+    msk = torch.as_tensor(np.asarray(msk), device=pts3d.device).reshape(1, -1)
+    if int(msk.sum()) < MIN_PNP_POINTS:
         return None
-    _, R, t, f = best
-    w2c = _srt_to_4x4(1.0, R, t)
-    return float(f), np.linalg.inv(w2c)
+    focals = [focal] if focal is not None else _focal_sweep(W, H)
+    res = ransac_pnp(pts3d.reshape(1, -1, 3), xy_grid(W, H, device=pts3d.device).reshape(-1, 2),
+                     msk, [focals], (W / 2, H / 2) if pp is None else pp, niter_PnP)[0]
+    if res is None:
+        return None
+    # the JAX package's float32 world-to-camera matrix, inverted
+    w2c = np.linalg.inv(res[1].cpu().numpy()).astype(np.float32)
+    w2c[3] = (0, 0, 0, 1)
+    return res[0], np.linalg.inv(w2c)
 
 
 def _register(a, b, w):
-    R, t, s = rigid_points_registration(torch.from_numpy(a.reshape(-1, 3)),
-                                        torch.from_numpy(b.reshape(-1, 3)),
-                                        weights=torch.from_numpy(w))
-    return R.numpy(), t.numpy(), float(s)
-
-
-def _apply(T, pts):
-    return geotrf(torch.from_numpy(np.asarray(T, np.float32)),
-                  torch.from_numpy(np.asarray(pts, np.float32))).numpy()
+    return rigid_points_registration(a.reshape(-1, 3), b.reshape(-1, 3), weights=w)
 
 
 def edge_score_matrix(data: SceneData, cfg: SceneConfig, conf_i, conf_j):
@@ -314,31 +148,36 @@ def mst_init(params: Dict, data: SceneData, cfg: SceneConfig,
     """Initialise pw_poses / im_poses / focals / depthmaps from an MST walk
     over the pairwise graph. conf_i/conf_j: (E, A) raw confidences.
     init_priors: optional (keypose 4x4, keydepth (H, W), [keyfocal])
-    anchoring frame 0. Returns updated params (on the params' device)."""
+    anchoring frame 0. The registrations and focals run on data's device;
+    the frames left without a pose take one batched RANSAC-PnP there.
+    Returns updated params (on the params' device)."""
     H, W = cfg.imshape
     A = H * W
+    dev = data.pred_i.device if torch.is_tensor(data.pred_i) else torch.device("cpu")
+    on = lambda x: torch.as_tensor(x, device=dev).float()
     host = lambda x: (x.detach().cpu().numpy() if torch.is_tensor(x)
                       else np.asarray(x))
     ei, ej = host(data.ei), host(data.ej)
     edges = [(int(i), int(j)) for i, j in zip(ei, ej)]
     E = len(edges)
     n = cfg.n_imgs
-    pred_i = host(data.pred_i).astype(np.float32).reshape(E, H, W, 3)
-    pred_j = host(data.pred_j).astype(np.float32).reshape(E, H, W, 3)
-    conf_i = host(conf_i).astype(np.float32).reshape(E, A)
-    conf_j = host(conf_j).astype(np.float32).reshape(E, A)
+    pred_i = on(data.pred_i).reshape(E, H, W, 3)
+    pred_j = on(data.pred_j).reshape(E, H, W, 3)
+    conf_i = on(conf_i).reshape(E, A)
+    conf_j = on(conf_j).reshape(E, A)
     edge_idx = {e: k for k, e in enumerate(edges)}
 
-    scores = conf_i.mean(1) * conf_j.mean(1)
+    scores = (conf_i.mean(1) * conf_j.mean(1)).cpu().numpy()
     g = sp.dok_array((n, n))
     for k, (i, j) in enumerate(edges):
         g[i, j] = -float(scores[k])
     msp = sp.csgraph.minimum_spanning_tree(g.tocsr()).tocoo()
     todo = sorted(zip(-msp.data, msp.row, msp.col))
 
-    pts3d: List[Optional[np.ndarray]] = [None] * n
-    im_poses: List[Optional[np.ndarray]] = [None] * n
+    pts3d: List[Optional[torch.Tensor]] = [None] * n
+    im_poses: List[Optional[torch.Tensor]] = [None] * n
     im_focals: List[Optional[float]] = [None] * n
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
 
     if init_priors is None:
         score, i, j = todo.pop()
@@ -348,27 +187,27 @@ def mst_init(params: Dict, data: SceneData, cfg: SceneConfig,
                         len(todo) - 1)
         score, i, j = todo.pop(root_idx)
     k = edge_idx[(i, j)]
-    pts3d[i] = pred_i[k].copy()
-    pts3d[j] = pred_j[k].copy()
+    pts3d[i] = pred_i[k].clone()
+    pts3d[j] = pred_j[k].clone()
     done = {i, j}
     if init_priors is None:
-        im_poses[i] = np.eye(4, dtype=np.float32)
+        im_poses[i] = eye
         im_focals[i] = estimate_focal_weiszfeld(pred_i[k])
     else:
-        keypose = np.asarray(init_priors[0], np.float32)
-        keyfocal = float(np.asarray(init_priors[2]).ravel()[0])
+        keypose = on(init_priors[0])
+        keyfocal = float(np.asarray(host(init_priors[2])).ravel()[0])
         im_poses[0] = keypose
         im_focals[0] = keyfocal
         if i == 0:
-            pts3d[i] = _apply(keypose, pts3d[i])
-            pts3d[j] = _apply(keypose, pts3d[j])
+            pts3d[i] = geotrf(keypose, pts3d[i])
+            pts3d[j] = geotrf(keypose, pts3d[j])
         else:
             ji = edge_idx.get((j, i))
             if ji is not None:
-                pts3d[i] = _apply(keypose, pred_j[ji])
-                pts3d[j] = _apply(keypose, pred_i[ji])
+                pts3d[i] = geotrf(keypose, pred_j[ji])
+                pts3d[j] = geotrf(keypose, pred_i[ji])
             else:
-                pts3d[j] = _apply(keypose, pts3d[j])
+                pts3d[j] = geotrf(keypose, pts3d[j])
 
     # greedy propagation; `stall` re-seeds an unreachable component
     stall = 0
@@ -381,9 +220,9 @@ def mst_init(params: Dict, data: SceneData, cfg: SceneConfig,
             if stall > len(todo):
                 score, i, j = todo.pop()
                 k = edge_idx[(i, j)]
-                pts3d[i] = pred_i[k].copy()
-                pts3d[j] = pred_j[k].copy()
-                im_poses[i] = np.eye(4, dtype=np.float32)
+                pts3d[i] = pred_i[k].clone()
+                pts3d[j] = pred_j[k].clone()
+                im_poses[i] = eye
                 if im_focals[i] is None:
                     im_focals[i] = estimate_focal_weiszfeld(pred_i[k])
                 done.update((i, j))
@@ -394,67 +233,78 @@ def mst_init(params: Dict, data: SceneData, cfg: SceneConfig,
             im_focals[i] = estimate_focal_weiszfeld(pred_i[k])
         if i in done:
             R, t, s = _register(pred_i[k], pts3d[i], conf_i[k])
-            pts3d[j] = _apply(_srt_to_4x4(s, R, t), pred_j[k])
+            pts3d[j] = geotrf(_srt_to_4x4(s, R, t), pred_j[k])
             done.add(j)
             if im_poses[i] is None:
                 im_poses[i] = _srt_to_4x4(1.0, R, t)
         elif j in done:
             R, t, s = _register(pred_j[k], pts3d[j], conf_j[k])
-            pts3d[i] = _apply(_srt_to_4x4(s, R, t), pred_i[k])
+            pts3d[i] = geotrf(_srt_to_4x4(s, R, t), pred_i[k])
             done.add(i)
             if im_poses[i] is None:
                 im_poses[i] = _srt_to_4x4(1.0, R, t)
 
-    # leftover focals from the best incident edge; leftover poses via PnP
+    # leftover focals from the best incident edge; leftover poses by one
+    # batched PnP over every frame without a pose, sweeping the focal of a
+    # frame that is no edge's first view (a graph that is not symmetrised)
     order = np.argsort([-s for s in scores])
     for k in order:
         i, _ = edges[k]
         if im_focals[i] is None:
             im_focals[i] = estimate_focal_weiszfeld(pred_i[k])
-    im_conf = (host(data.im_conf).reshape(n, A) if data.im_conf is not None
-               else np.ones((n, A)))
+    im_conf = (on(data.im_conf).reshape(n, A) if data.im_conf is not None
+               else torch.ones((n, A), device=dev))
+    need = [i for i in range(n) if im_poses[i] is None and pts3d[i] is not None]
+    if need:
+        res = ransac_pnp(torch.stack([pts3d[i] for i in need]).reshape(len(need), A, 3),
+                         xy_grid(W, H, device=dev).reshape(-1, 2),
+                         im_conf[need] > cfg.min_conf_thr,
+                         [_focal_sweep(W, H) if im_focals[i] is None else [im_focals[i]]
+                          for i in need], (W / 2, H / 2), niter_PnP)
+        for i, r in zip(need, res):
+            if r:
+                im_focals[i], im_poses[i] = r[0], r[1].float()
     for i in range(n):
-        if im_poses[i] is None and pts3d[i] is not None:
-            msk = (im_conf[i] > cfg.min_conf_thr).reshape(H, W)
-            res = fast_pnp(pts3d[i], im_focals[i], msk, niter_PnP=niter_PnP)
-            if res:
-                im_focals[i], im_poses[i] = res
         if im_poses[i] is None:
-            im_poses[i] = np.eye(4, dtype=np.float32)
+            im_poses[i] = eye
         if pts3d[i] is None:
-            pts3d[i] = np.zeros((H, W, 3), np.float32)
+            pts3d[i] = torch.zeros((H, W, 3), device=dev)
         if im_focals[i] is None:
             im_focals[i] = float(max(H, W))
 
     return _init_from_pts3d(params, cfg, edges, pred_i, conf_i,
-                            np.stack(pts3d), np.stack(im_poses).astype(np.float32),
-                            np.array(im_focals))
+                            torch.stack(pts3d), torch.stack(im_poses), np.array(im_focals))
 
 
 def _init_from_pts3d(params, cfg, edges, pred_i, conf_i, pts3d, im_poses,
                      im_focals):
-    """Set pw_poses / im_poses / focals / depths from the propagated cloud."""
+    """Set pw_poses / im_poses / focals / depths from the propagated cloud;
+    pred_i, conf_i, pts3d and im_poses are tensors on the scene's device."""
     dev = params["pw_poses"].device
-    pw_vecs, log_scales = [], []
+    pw_vecs, scales = [], []
     for k, (i, j) in enumerate(edges):
         R, t, s = _register(pred_i[k], pts3d[i], conf_i[k])
-        T = np.eye(4, dtype=np.float32)
+        T = torch.eye(4, dtype=torch.float32, device=R.device)
         T[:3, :3] = R
         T[:3, 3] = t
-        pw_vecs.append(matrix_to_pose_vec(torch.from_numpy(T), scale=s).numpy())
-        log_scales.append(np.log(s))
+        pw_vecs.append(matrix_to_pose_vec(T, scale=s))
+        scales.append(s)
+    # the scale factor and the n 4x4 inverses in float64 / numpy on the host,
+    # as the JAX package forms them: the log-depths of points near a camera
+    # amplify their rounding
+    log_scales = np.log(torch.stack(scales).cpu().numpy().astype(np.float64))
     s_factor = (float(np.exp(np.log(cfg.base_scale) - np.mean(log_scales)))
                 if cfg.norm_pw_scale else 1.0)
-    im_poses = im_poses.copy()
+    im_poses = im_poses.clone()
     im_poses[:, :3, 3] *= s_factor
     pts3d = pts3d * s_factor
 
     new = dict(params)
-    new["pw_poses"] = torch.from_numpy(np.stack(pw_vecs)).float().to(dev)
-    new["im_poses"] = matrix_to_pose_vec(torch.from_numpy(im_poses)).float().to(dev)
+    new["pw_poses"] = torch.stack(pw_vecs).float().to(dev)
+    new["im_poses"] = matrix_to_pose_vec(im_poses).float().to(dev)
     new = set_focal(new, cfg, np.arange(cfg.n_imgs), im_focals)
     if not cfg.if_use_mono:
-        cams = np.stack([np.linalg.inv(p) for p in im_poses]).astype(np.float32)
-        depth = _apply(cams, pts3d.astype(np.float32))[..., 2]
+        cams = torch.from_numpy(np.linalg.inv(im_poses.cpu().numpy())).to(pts3d.device)
+        depth = geotrf(cams, pts3d)[..., 2]
         new = set_depthmap(new, np.arange(cfg.n_imgs), depth.reshape(cfg.n_imgs, -1))
     return new

@@ -455,9 +455,10 @@ def set_focal(params, cfg: SceneConfig, idx, focal):
 
 
 def set_depthmap(params, idx, depth):
-    """depth: (A,) for a scalar idx, or (len(idx), A)."""
-    logd = torch.log(torch.clamp(torch.as_tensor(np.asarray(depth),
-                                                 dtype=torch.float32), min=1e-8))
+    """depth: (A,) for a scalar idx, or (len(idx), A); an array or a tensor on
+    any device."""
+    depth = depth if torch.is_tensor(depth) else np.asarray(depth)
+    logd = torch.log(torch.clamp(torch.as_tensor(depth, dtype=torch.float32), min=1e-8))
     d = params["im_depthmaps"].clone()
     d[torch.as_tensor(idx)] = logd.to(d.device)
     return dict(params, im_depthmaps=d)

@@ -63,8 +63,17 @@ final result line:
                 launched 4
                 times per K1 site and twice per K2 site, the LayerNorm launch
                 twice per K1 site (one a site, and each decoder cross site
-                normalises its memory too: as many as K1 - K2 sites). A
-                second, warm run gives pairs/s and it/s.
+                normalises its memory too: as many as K1 - K2 sites). The
+                frames mst_init leaves without a pose must go into one
+                batched ransac_pnp call on the card (alignment/pnp.py: cv2's
+                RANSAC and SQPnP in torch); the same call on the CPU must give
+                the same focals and cam2world within PNP_CPU_TOL, where the
+                problem is not degenerate (the seeded weights put every
+                frame's focal at Weiszfeld's 1e-4 clamp, where RANSAC turns
+                with rounding: those are counted), and so must 4 noisy,
+                conditioned 288x512 views. Prints init_s, the PnP problems
+                and calls. A second, warm run gives
+                pairs/s and it/s.
   6. sam2     - SAM2.1 Hiera-L at the published geometry (SAM2_HF_CONFIG,
                 seeded random weights, fp32 with TF32 off), written as a local
                 HF folder with utils.hf_weights.save_pretrained and read back
@@ -83,18 +92,21 @@ final result line:
   7. flow     - the same entry point on the demo's flow path: SEA-RAFT
                 spring-M at full width (seeded random weights) computes flows
                 in both directions of every edge, the self-supervised motion
-                masks come from PairViewer solves (numpy PnP on the host) and
+                masks come from PairViewer solves (the two PnPs of every
+                symmetric pair in one batched ransac_pnp call on the card) and
                 are refined by the sam2 phase's model (sam2_mask_refine=True,
                 sam2_model=...: the reference's pose_test --sam2_mask_refine
                 route), and the solve adds the flow term (the demo's scene_kw,
-                weight 0.01). 12 of the 24 frames (70 pairs): the host PnP of
-                the masks costs seconds per pair, and 24 frames would take most
-                of the time limit. The counters are zeroed right before the
-                call; K5 must launch twice (the bf16 pack and the fp32
-                repack), K3 and K4 300 times, K6 and K9 as the sam2 phase's
-                formula gives for the self masks; flows, masks (n, H, W) and
-                outputs finite. Prints sam2_s and the dynamic share of the
-                masks before and after the refinement.
+                weight 0.01). All 24 frames (190 pairs). The counters are
+                zeroed right before the call; K5 must launch twice (the bf16
+                pack and the fp32 repack), K3 and K4 300 times, K6 and K9 as
+                the sam2 phase's formula gives for the self masks; flows,
+                masks (n, H, W) and outputs finite; the masks' PnP one
+                ransac_pnp call of 190 problems and mst_init's at most one,
+                PNP_CPU_PICK of each call's problems re-run on the CPU as the
+                main phase holds them (degenerate ones counted). Prints
+                masks_s, init_s, the PnP problems and calls, sam2_s and the
+                dynamic share of the masks before and after the refinement.
   8. train    - the fine-tuning path: K6 against its plain version at the
                 training shapes (and its time beside torch's SDPA), K6's and
                 the differentiable K1/K2 sites' gradients against autograd of
@@ -288,7 +300,15 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES, H, W = 24, 288, 512
-FLOW_FRAMES = 12
+FLOW_FRAMES = 24
+# ransac_pnp on the card against the same call on the CPU: cam2world's
+# largest difference (fp64 on both; the sums run in another order), and how
+# many of a call's problems a phase re-runs on the host. The seeded random
+# weights put every focal of the main and flow paths at Weiszfeld's 1e-4
+# clamp, where ransac_pnp gives no pose (a focal of at most 5 px); a
+# consistent synthetic scene of the main path's size (`conditioned_scene`)
+# takes both entry points through posed problems
+PNP_CPU_TOL, PNP_CPU_PICK = 1e-6, 4
 BATCH = 32
 TAIL_BATCH = 190 % BATCH   # the last decode batch of the main path's 190 pairs
 LN_ROTATE = 4   # inputs the LayerNorm row cycles through: 75-226 MB, past the L2
@@ -377,6 +397,161 @@ PEAK_TF32 = 494.7e12
 def fail(phase: str, msg: str) -> int:
     print(f"FAIL {phase}: {msg}", flush=True)
     return 1
+
+
+class PnpCalls:
+    """Stands in for `mod.ransac_pnp` while a path runs: counts the batched
+    calls and their problems, keeps each call's inputs and results, and
+    holds the card's results against the same call on the CPU."""
+
+    def __init__(self, mod):
+        self.mod, self.own, self.calls = mod, mod.ransac_pnp, []
+        mod.ransac_pnp = self
+
+    def __call__(self, X, pixels, masks, focals, pp, niter):
+        res = self.own(X, pixels, masks, focals, pp, niter)
+        self.calls.append(((X, pixels, masks, focals, pp, niter), res))
+        return res
+
+    def restore(self):
+        self.mod.ransac_pnp = self.own
+
+    def stats(self):
+        return {"ransac_pnp_calls": len(self.calls),
+                "pnp_problems": sum(len(r) for _, r in self.calls)}
+
+    def check_on_cpu(self, pick=None):
+        """Re-runs every call (or `pick` of its problems) on the CPU: each
+        problem must give the same pose or none, the same focal and
+        cam2world within PNP_CPU_TOL. Returns what it compared and the
+        seconds it took."""
+        import numpy as np
+        import torch
+        t0 = time.perf_counter()
+        worst, posed, unposed = 0.0, 0, 0
+        for (X, pixels, masks, focals, pp, niter), res in self.calls:
+            sel = list(range(len(res))) if pick is None else sorted(
+                {round(k * (len(res) - 1) / (pick - 1)) for k in range(pick)})
+            f = [focals[b] for b in sel]
+            cpu = self.own(X[sel].cpu(), pixels.cpu(), masks[sel].cpu(), f, pp, niter)
+            for b, c in zip(sel, cpu):
+                g = res[b]
+                if (g is None) != (c is None) or (g is not None and g[0] != c[0]):
+                    raise AssertionError(f"ransac_pnp problem {b}: card {g}, CPU {c}")
+                if g is None:
+                    unposed += 1
+                else:
+                    worst = max(worst, (g[1].cpu() - c[1]).abs().max().item())
+                    posed += 1
+        if worst > PNP_CPU_TOL:
+            raise AssertionError(f"ransac_pnp on the card is {worst:.3g} from the CPU's")
+        return {"cpu_checked_poses": posed, "cpu_checked_unposed": unposed,
+                "cpu_max_abs_c2w_diff": worst, "cpu_check_s": time.perf_counter() - t0}
+
+    def all_posed(self):
+        return all(r is not None for _, res in self.calls for r in res)
+
+
+def conditioned_scene(dev, n=N_FRAMES, focal=400.0, seed=0):
+    """A consistent scene at the main path's size, made on the card: n
+    frames of 288x512, depth 2 + 0.3 sin(u / 51.2 + k) + 0.2 cos(v / 41),
+    frame k turned by 0.01 k rad about y and moved by (0.03, 0.005, 0.01) k,
+    seen at `focal`; the engine's output over the main path's symmetrised
+    swinstride-5-noncyclic pairs (point noise 0.01, confidences U(2, 6)) and
+    the flows between each pair's views, with a block of 60x100 pixels
+    moved by 6 px in both. Returns (output, flow_ij, flow_ji, block)."""
+    import torch
+    from align3r_tpu_torch.inference.pairs import make_pairs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pairs = make_pairs(n, "swinstride-5-noncyclic", symmetrize=True)
+    v, u = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                          torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
+    k = torch.arange(n, device=dev, dtype=torch.float32)[:, None, None]
+    d = 2 + 0.3 * torch.sin(u / 51.2 + k) + 0.2 * torch.cos(v / 41)
+    cams = torch.stack([(u - W / 2) / focal * d, (v - H / 2) / focal * d, d], -1)   # (n, H, W, 3)
+    th = 0.01 * k[:, 0, 0]
+    c2w = torch.eye(4, device=dev).repeat(n, 1, 1)
+    c2w[:, 0, 0], c2w[:, 0, 2], c2w[:, 2, 0], c2w[:, 2, 2] = th.cos(), th.sin(), -th.sin(), th.cos()
+    c2w[:, :3, 3] = k[:, 0] * torch.tensor([0.03, 0.005, 0.01], device=dev)
+    ei = torch.tensor([i for i, _ in pairs], device=dev)
+    ej = torch.tensor([j for _, j in pairs], device=dev)
+    rel = torch.linalg.inv(c2w[ei]) @ c2w[ej]                     # frame j into frame i
+    move = lambda T, p: p @ T[:, None, :3, :3].transpose(-1, -2) + T[:, None, None, :3, 3]
+    noisy = lambda p: p + 0.01 * torch.randn(p.shape, generator=g, device=dev)
+    conf = lambda: 2 + 4 * torch.rand((len(pairs), H, W), generator=g, device=dev)
+    output = {"view1": {"idx": ei.cpu().numpy()}, "view2": {"idx": ej.cpu().numpy()},
+              "pred1": {"pts3d": noisy(cams[ei]), "conf": conf()},
+              "pred2": {"pts3d_in_other_view": noisy(move(rel, cams[ej])), "conf": conf()}}
+
+    def flow(src, T):
+        q = move(T, cams[src])
+        px = torch.stack([focal * q[..., 0] / q[..., 2] + W / 2,
+                          focal * q[..., 1] / q[..., 2] + H / 2], -1)
+        return px - torch.stack([u, v], -1)
+
+    flow_ij, flow_ji = flow(ei, torch.linalg.inv(rel)), flow(ej, rel)
+    block = (slice(100, 160), slice(200, 300))
+    flow_ij[:, block[0], block[1]] += 6.0
+    flow_ji[:, block[0], block[1]] += 6.0
+    return output, flow_ij, flow_ji, block
+
+
+def check_mst_init_conditioned(dev, n=N_FRAMES):
+    """mst_init on `conditioned_scene` through build_scene, on the card: one
+    batched ransac_pnp call, every problem posed, the problems re-run on the
+    CPU (PNP_CPU_PICK of them), and the initialised parameters finite."""
+    import torch
+    from align3r_tpu_torch.alignment import init_poses as tinit
+    from align3r_tpu_torch.alignment.scene import build_scene
+    output = conditioned_scene(dev, n)[0]
+    cfg, data, params = build_scene(output, cfg_kw=dict(shared_focal=True, min_conf_thr=1.1))
+    calls = PnpCalls(tinit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        params = tinit.mst_init(params, data, cfg, output["pred1"]["conf"],
+                                output["pred2"]["conf"])
+        torch.cuda.synchronize()
+    finally:
+        calls.restore()
+    out = dict(calls.stats(), init_s=time.perf_counter() - t0)
+    if out["ransac_pnp_calls"] != 1 or not out["pnp_problems"] or not calls.all_posed():
+        raise AssertionError(f"mst_init on the conditioned scene: {out}, "
+                             f"{[r is not None for _, res in calls.calls for r in res]}")
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError("mst_init on the conditioned scene: non-finite parameters")
+    out.update(calls.check_on_cpu(PNP_CPU_PICK))
+    return out
+
+
+def check_masks_conditioned(dev, n=N_FRAMES):
+    """motion_masks_from_pairs on `conditioned_scene`, on the card: one
+    batched ransac_pnp call of 2 (E / 2) problems, every problem posed,
+    PNP_CPU_PICK of them re-run on the CPU; over the frames, the moved
+    block is dynamic on at least 90% of its pixels, the rest on under 1%."""
+    import numpy as np
+    import torch
+    from align3r_tpu_torch.alignment import pair_viewer as tpv
+    output, flow_ij, flow_ji, block = conditioned_scene(dev, n)
+    calls = PnpCalls(tpv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        masks = tpv.motion_masks_from_pairs(output, flow_ij, flow_ji, min_conf_thr=1.1)
+    finally:
+        calls.restore()
+    out = dict(calls.stats(), masks_s=time.perf_counter() - t0)
+    E = len(output["view1"]["idx"])
+    if out["ransac_pnp_calls"] != 1 or out["pnp_problems"] != E or not calls.all_posed():
+        raise AssertionError(f"motion masks on the conditioned scene: {out}")
+    inside = np.zeros(masks.shape[1:], bool)
+    inside[block] = True
+    out["block_dynamic"] = float(masks[:, inside].mean())
+    out["other_dynamic"] = float(masks[:, ~inside].mean())
+    if out["block_dynamic"] < 0.9 or out["other_dynamic"] > 0.01:
+        raise AssertionError(f"motion masks on the conditioned scene: {out}")
+    out.update(calls.check_on_cpu(PNP_CPU_PICK))
+    return out
 
 
 def cuda_time(fn, reps: int, warmup: int = 2):
@@ -1529,6 +1704,7 @@ def main_path(dev):
     from align3r_tpu_torch.models.config import VIT_L_512
     import dataclasses
     from align3r_tpu_torch.models.align3r import Align3R, init_align3r_
+    from align3r_tpu_torch.alignment import init_poses as tinit
     from align3r_tpu_torch.models.dpt_head import prepare_dpt_head
     from align3r_tpu_torch.ops import edge_loss as el
     from align3r_tpu_torch.ops import fused_site as fs
@@ -1563,13 +1739,24 @@ def main_path(dev):
               scene_kw=scene_kw)
     counters = (fs.attention_site, fs.mlp_site, el.edge_loss_fwd, el.edge_loss_bwd,
                 el.permute_packed, fs.gemm, fs._ln_cuda)
+    pnp_calls = PnpCalls(tinit)
     for c in counters:
         c.launches = 0
-    res = reconstruct_scene(imgs, priors, pm, **kw)
+    try:
+        res = reconstruct_scene(imgs, priors, pm, **kw)
+    finally:
+        pnp_calls.restore()
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
     print(f"main: cold run {json.dumps(res.timings)} launches {json.dumps(launches)}",
           flush=True)
+    pnp = dict(pnp_calls.stats(), init_s=res.timings["init_s"])
+    if pnp["ransac_pnp_calls"] != 1 or not pnp["pnp_problems"]:
+        raise AssertionError(f"mst_init did not make one batched ransac_pnp call: {pnp}")
+    pnp.update(pnp_calls.check_on_cpu())
+    pnp["conditioned"] = check_mst_init_conditioned(dev)
+    del pnp_calls
+    print(f"main: pnp {json.dumps(pnp)}", flush=True)
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1606,7 +1793,7 @@ def main_path(dev):
     warm = reconstruct_scene(imgs, priors, pm, **kw).timings
     rates = {"pairs_per_s": n_pairs / warm["inference_s"],
              "alignment_it_per_s": 300 / warm["solve_s"],
-             "warm_timings_s": warm,
+             "warm_timings_s": warm, "pnp": pnp,
              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"main: warm run {json.dumps(rates)}", flush=True)
     return launches, rates, pm, pm32, imgs, priors
@@ -2129,6 +2316,8 @@ def flow_path(dev, pm, imgs, priors, sam2):
     import numpy as np
     import torch
     from align3r_tpu_torch import pipeline as tp
+    from align3r_tpu_torch.alignment import init_poses as tinit
+    from align3r_tpu_torch.alignment import pair_viewer as tpv
     from align3r_tpu_torch.alignment.flow import flow_term
     from align3r_tpu_torch.models import sam2_video as tsv
     from align3r_tpu_torch.models.raft import RAFT2, SPRING_M, init_raft_
@@ -2157,6 +2346,7 @@ def flow_path(dev, pm, imgs, priors, sam2):
     self_masks = []
     own = tp.motion_masks_from_pairs
     tp.motion_masks_from_pairs = lambda *a, **k: self_masks.append(own(*a, **k)) or self_masks[-1]
+    mask_pnp, init_pnp = PnpCalls(tpv), PnpCalls(tinit)
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
@@ -2164,8 +2354,21 @@ def flow_path(dev, pm, imgs, priors, sam2):
         res = reconstruct_scene(imgs, priors, pm, **kw)
     finally:
         tp.motion_masks_from_pairs = own
+        mask_pnp.restore()
+        init_pnp.restore()
     torch.cuda.synchronize()
     launches = {c.__name__: c.launches for c in counters}
+    pnp = {"masks": dict(mask_pnp.stats(), masks_s=res.timings["masks_s"]),
+           "init": dict(init_pnp.stats(), init_s=res.timings["init_s"])}
+    if (pnp["masks"] != dict(ransac_pnp_calls=1, pnp_problems=res.cfg.n_edges,
+                             masks_s=res.timings["masks_s"])
+            or pnp["init"]["ransac_pnp_calls"] > 1):
+        raise AssertionError(f"the flow path's PnPs were not one batched call each: {pnp}")
+    pnp["masks"].update(mask_pnp.check_on_cpu(PNP_CPU_PICK))
+    pnp["init"].update(init_pnp.check_on_cpu(PNP_CPU_PICK))
+    pnp["masks"]["conditioned"] = check_masks_conditioned(dev)
+    del mask_pnp, init_pnp
+    print(f"flow: pnp {json.dumps(pnp)}", flush=True)
     steps, tracked = tsv.frame_steps(self_masks[0])
     trunk, mem = tsv.dispatch_counts(sam2[1])
     t = res.timings
@@ -2209,7 +2412,7 @@ def flow_path(dev, pm, imgs, priors, sam2):
              "sam2_s_per_frame_step": t["sam2_s"] / max(steps, 1),
              "dynamic_share_self_masks": float(self_masks[0].mean()),
              "inference_s": t["inference_s"], "init_s": t["init_s"], "solve_s": t["solve_s"],
-             "alignment_it_per_s": 300 / t["solve_s"],
+             "pnp": pnp, "alignment_it_per_s": 300 / t["solve_s"],
              "dynamic_share": float(masks.mean()),
              "flow_term_final": fl, "flow_gate_open_at_end": fl <= res.cfg.flow_loss_thre,
              "flow_term_fwd_bwd_ms": term_ms,

@@ -1378,3 +1378,71 @@ def test_train_from_dataset_strings_on_the_card(dev, tmp_path):
     assert sa.small_attention.launches - before >= steps
     sd = torch.load(tmp_path / "out" / "checkpoint-final.pth", weights_only=True)["model"]
     assert set(sd) == set(res.model.state_dict())
+
+
+def test_ransac_pnp_on_the_card_matches_the_cpu(dev):
+    """ransac_pnp (EPnP hypotheses, float32 scoring, SQPnP on the winners'
+    inliers) on the card against the same call on the CPU, fp64: the same
+    focal and cam2world to 1e-9 for 6 problems (masks of 4, 5 and thousands
+    of points, two focals each), the same None for one of 3 points."""
+    from align3r_tpu_torch.alignment import pnp
+    from pnp_views import surface_view
+    h, w = 72, 128
+    X = torch.from_numpy(np.stack([surface_view(s, h, w, f=100.0, outliers=0.05)
+                                   for s in range(7)]).reshape(7, -1, 3))
+    rng = np.random.default_rng(0)
+    masks = rng.random((7, h * w)) < 0.8
+    for b, n in ((0, 3), (1, 4), (2, 5)):
+        masks[b] = False
+        masks[b, rng.choice(h * w, n, replace=False)] = True
+    masks = torch.from_numpy(masks)
+    pix = torch.from_numpy(np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1).reshape(-1, 2))
+    focals = [[90.0, 100.0]] * 7
+    cpu = pnp.ransac_pnp(X, pix, masks, focals, (w / 2, h / 2), 100)
+    card = pnp.ransac_pnp(X.to(dev), pix.to(dev), masks.to(dev), focals, (w / 2, h / 2), 100)
+    assert cpu[0] is None and card[0] is None
+    for a, b in zip(cpu[1:], card[1:]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert b[1].device.type == "cuda" and a[0] == b[0]
+            torch.testing.assert_close(b[1].cpu(), a[1], rtol=0, atol=1e-9)
+
+
+def test_sqpnp_on_the_card_matches_the_cpu(dev):
+    from align3r_tpu_torch.alignment import pnp
+    rng = np.random.default_rng(1)
+    B, A = 16, 300
+    cam = np.concatenate([rng.uniform(-1, 1, (B, A, 2)), rng.uniform(1.5, 3, (B, A, 1))], -1)
+    xn = cam[..., :2] / cam[..., 2:] + 0.003 * rng.standard_normal((B, A, 2))
+    X = cam - rng.normal(size=(B, 1, 3))
+    w = (np.arange(A) < rng.integers(6, A, (B, 1))).astype(np.float64)
+    args = [torch.from_numpy(a) for a in (X, xn, w)]
+    R, t, ok = pnp.sqpnp(*args)
+    Rc, tc, okc = pnp.sqpnp(*[a.to(dev) for a in args])
+    assert ok.all() and torch.equal(okc.cpu(), ok)
+    torch.testing.assert_close(Rc.cpu(), R, rtol=0, atol=1e-9)
+    torch.testing.assert_close(tc.cpu(), t, rtol=0, atol=1e-9)
+
+
+def test_mst_init_on_a_cuda_scene(dev):
+    """mst_init on a scene whose tensors live on the card: its registrations,
+    focals and batched PnP run there, and the parameters it returns are on
+    the card, within 1e-4 of the same scene's on the CPU."""
+    from align3r_tpu_torch.alignment import init_poses as tinit
+    from align3r_tpu_torch.alignment import scene as ts
+    from pnp_views import graph_output
+    edges = [(i, j) for i in range(4) for j in range(4) if i != j and abs(i - j) <= 2]
+    out, _ = graph_output(edges, 4)
+    kw = dict(shared_focal=True, temporal_smoothing_weight=0.01, translation_weight=1.0,
+              min_conf_thr=1.1)
+    on = lambda o, d: {k: ({kk: torch.as_tensor(vv, device=d) for kk, vv in v.items()}
+                           if k.startswith("pred") else v) for k, v in o.items()}
+    res = {}
+    for d in ("cpu", dev):
+        cfg, data, params = ts.build_scene(on(out, d), kw)
+        c = on(out, d)
+        res[str(d)] = tinit.mst_init(params, data, cfg, c["pred1"]["conf"], c["pred2"]["conf"])
+    for k, v in res[str(dev)].items():
+        assert v.device.type == "cuda", k
+    for k in ("pw_poses", "im_poses", "im_focals", "im_depthmaps"):
+        torch.testing.assert_close(res[str(dev)][k].cpu(), res["cpu"][k], rtol=1e-4, atol=1e-4)

@@ -204,13 +204,22 @@ def _pnp(pts3d, focal, msk, pp=None, niter_PnP=10):
     return float(focal), T
 
 
+def _batched(pnp):
+    """A one-problem PnP stand-in in the form of the port's batched
+    ransac_pnp: one call per problem of the batch."""
+    def call(X, pixels, masks, focals, pp, niter):
+        X, masks, focals = (torch.as_tensor(a).cpu().numpy() for a in (X, masks, focals))
+        return [pnp(x, float(np.ravel(f)[0]), m, pp, niter) for x, m, f in zip(X, masks, focals)]
+    return call
+
+
 def test_pair_viewer_and_motion_masks_match_jax(monkeypatch):
     """PairViewer's poses, focals and depths to 1e-5 of the largest value
     (Weiszfeld focals in fp32 in two libraries); the motion masks equal on
     all but 0.1% of the pixels (a pixel flips where its mean error lies
     within fp32 rounding of the 0.35 threshold)."""
     monkeypatch.setattr(jpv, "fast_pnp", _pnp)
-    monkeypatch.setattr(tpv, "fast_pnp", _pnp)
+    monkeypatch.setattr(tpv, "ransac_pnp", _batched(_pnp))
     out = _pair_output()
     E = len(out["view1"]["idx"])
     half = E // 2

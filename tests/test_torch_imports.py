@@ -51,7 +51,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "models.sam2_refine", "utils.jpeg", "training.data.base", "training.data.cropping",
         "training.data.datasets", "tools.train", "alignment.batched", "models.linear_head",
         "parallel.mesh", "tools.dist_smoke", "tools.serve_scene", "parallel.shardings",
-        "tools.tp_drift")} <= names
+        "tools.tp_drift", "alignment.pnp", "tools.profile_pnp")} <= names
 
 
 MODEL_STRINGS = [

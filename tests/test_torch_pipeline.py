@@ -33,7 +33,7 @@ from align3r_tpu_torch.models.align3r import Align3R
 from align3r_tpu_torch.models.convert import state_dict_from_jax
 
 from test_torch_engine import _numpy_init
-from test_torch_flow import _pnp
+from test_torch_flow import _batched, _pnp
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +62,7 @@ def _tiny_scene():
 def test_reconstruct_scene_matches_jax(monkeypatch):
     params, model, imgs, priors = _tiny_scene()
     monkeypatch.setattr(jinit, "fast_pnp", lambda *a, **k: None)
-    monkeypatch.setattr(tinit, "fast_pnp", lambda *a, **k: None)
+    monkeypatch.setattr(tinit, "ransac_pnp", _batched(lambda *a, **k: None))
     common = dict(scene_graph="swinstride-2-noncyclic", batch_size=4, variant="flow",
                   niter=100, schedule="linear", lr=0.01)
     ref = jpipe.reconstruct_scene(imgs, priors, params, TINY_TEST,
@@ -121,10 +121,10 @@ def test_reconstruct_scene_with_raft_flows_matches_jax(monkeypatch):
         return np.asarray(jfwd(a, b)), np.asarray(jfwd(b, a))
 
     monkeypatch.setattr(jpipe, "compute_raft_flows", jax_flows)
-    for mod in (jinit, tinit):
-        monkeypatch.setattr(mod, "fast_pnp", lambda *a, **k: None)
-    for mod in (jpv, tpv):
-        monkeypatch.setattr(mod, "fast_pnp", _pnp)
+    monkeypatch.setattr(jinit, "fast_pnp", lambda *a, **k: None)
+    monkeypatch.setattr(tinit, "ransac_pnp", _batched(lambda *a, **k: None))
+    monkeypatch.setattr(jpv, "fast_pnp", _pnp)
+    monkeypatch.setattr(tpv, "ransac_pnp", _batched(_pnp))
     scene_kw = dict(SCENE_KW, flow_loss_weight=0.01, flow_loss_start_epoch=0.1,
                     flow_loss_thre=1e6, depth_regularize_weight=0.01)
     common = dict(scene_graph="swinstride-2-noncyclic", batch_size=4, variant="flow",

@@ -33,6 +33,7 @@ from align3r_tpu_torch import pipeline as tpipe
 from align3r_tpu_torch.alignment import init_poses as tinit
 from align3r_tpu_torch.alignment import scene as ts
 
+from test_torch_flow import _batched
 from test_torch_scene import H, W, _synth
 
 torch.set_num_threads(2)
@@ -89,8 +90,8 @@ def network(monkeypatch):
 
     monkeypatch.setattr(jpipe, "inference", jax_net)
     monkeypatch.setattr(tpipe, "inference", port_net)
-    for mod in (jinit, tinit):
-        monkeypatch.setattr(mod, "fast_pnp", lambda *a, **k: None)
+    monkeypatch.setattr(jinit, "fast_pnp", lambda *a, **k: None)
+    monkeypatch.setattr(tinit, "ransac_pnp", _batched(lambda *a, **k: None))
 
 
 def _close(got, ref, names=("get_im_poses", "get_focals", "get_depthmaps", "get_intrinsics")):

@@ -1,4 +1,4 @@
-"""The port's numpy fast_pnp from 4 points, as the JAX package's cv2
+"""The port's fast_pnp from 4 points, as the JAX package's cv2
 solvePnPRansac (SQPNP) gives a pose from 4: masks of 4 and 5 valid pixels
 on noise-free points. With the focal given, both recover the true pose, so
 the port's is held to JAX's within 1e-5 (entries of cam2world); with the
@@ -10,6 +10,7 @@ import pytest
 
 from align3r_tpu.alignment import init_poses as jinit
 from align3r_tpu_torch.alignment import init_poses as tinit
+from align3r_tpu_torch.alignment import pnp as tpnp
 
 H, W, F = 24, 32, 30.0
 
@@ -75,5 +76,5 @@ def test_p3p_recovers_every_pose_it_is_given():
         R, t = _rodrigues(rng.normal(size=3)), rng.normal(size=3)
         cam = np.concatenate([rng.uniform(-1, 1, (3, 2)), rng.uniform(2, 6, (3, 1))], 1)
         X = (cam - t) @ R
-        sols = tinit._p3p(X, cam[:, :2] / cam[:, 2:])
+        sols = tpnp._p3p(X, cam[:, :2] / cam[:, 2:])
         assert min(np.abs(Rs - R).max() + np.abs(ts - t).max() for Rs, ts in sols) < 1e-9

@@ -23,6 +23,7 @@ from align3r_tpu.alignment import init_poses as jinit
 from align3r_tpu.alignment import scene as js
 from align3r_tpu.alignment.flow import flow_forward as jflow
 from align3r_tpu_torch.alignment import init_poses as tinit
+from align3r_tpu_torch.alignment import pnp as tpnp
 from align3r_tpu_torch.alignment import scene as ts
 from align3r_tpu_torch.alignment.flow import flow_forward as tflow
 
@@ -79,17 +80,17 @@ def test_mst_init_matches_jax():
     ref = jinit.mst_init(jparams, jdata, jcfg, out["pred1"]["conf"], out["pred2"]["conf"])
     tcfg, tdata, tparams = ts.build_scene(out, SCENE_KW)
     calls = []
-    orig = tinit.fast_pnp
+    orig = tinit.ransac_pnp
 
     def spy(*a, **k):
         calls.append(1)
         return orig(*a, **k)
 
-    tinit.fast_pnp = spy
+    tinit.ransac_pnp = spy
     try:
         got = tinit.mst_init(tparams, tdata, tcfg, out["pred1"]["conf"], out["pred2"]["conf"])
     finally:
-        tinit.fast_pnp = orig
+        tinit.ransac_pnp = orig
     assert calls, "the synthetic scene should exercise the PnP fallback"
     for k in ("pw_poses", "im_poses", "im_focals", "im_depthmaps"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-4,
@@ -180,16 +181,22 @@ def test_fast_pnp_stays_bounded_at_a_degenerate_focal():
 
 
 def test_fast_pnp_gives_no_pose_without_a_bounded_one(monkeypatch):
-    """When neither the inliers' refit nor the RANSAC hypothesis has a
-    bounded translation, fast_pnp gives no pose at that focal (None here,
-    one focal), and mst_init keeps view 1 at the identity pose: the solve
-    stays finite."""
-    refine = tinit._refine_pose
-    monkeypatch.setattr(tinit, "_refine_pose",
-                        lambda *a, **k: (lambda R, t: (R, t + 1e30))(*refine(*a, **k)))
+    """SQPnP's pose is the only candidate: when its translation is unbounded
+    (1e30 added here) fast_pnp gives no pose at that focal, with no fallback
+    to the RANSAC hypothesis (EPnP, left as it is), on a view it poses
+    otherwise. A focal of at most 5 px gives none either: on the degenerate
+    scene mst_init keeps view 1 (Weiszfeld focal 1e-4) at the identity pose,
+    and the solve stays finite."""
+    from pnp_views import surface_view
+    pts = surface_view(0, 48, 64, f=FOCAL)
+    msk = np.ones(pts.shape[:2], bool)
+    assert tinit.fast_pnp(pts, FOCAL, msk) is not None
+    sq = tpnp.sqpnp
+    monkeypatch.setattr(tpnp, "sqpnp", lambda *a: (lambda R, t, ok: (R, t + 1e30, ok))(*sq(*a)))
+    assert tinit.fast_pnp(pts, FOCAL, msk) is None
     out = _degenerate_output()
-    msk = np.ones(out["pred1"]["pts3d"].shape[1:3], bool)
-    assert tinit.fast_pnp(out["pred1"]["pts3d"][1], 1e-4, msk) is None
+    assert tinit.fast_pnp(out["pred1"]["pts3d"][1], 1e-4,
+                          np.ones(out["pred1"]["pts3d"].shape[1:3], bool)) is None
     poses, losses = _degenerate_solve(out)
     np.testing.assert_array_equal(poses[1], np.eye(4, dtype=np.float32))
     assert np.isfinite(losses).all()
